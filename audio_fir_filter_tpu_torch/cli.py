@@ -1,0 +1,230 @@
+"""``lowcut`` command line of the PyTorch/CUDA port.
+
+The parser surface, help text, error texts and exit codes of
+``audio_fir_filter_tpu/cli.py`` (0 for --help, 1 for any error), for the
+two-path scenario ``lowcut [options] <input_file> <output_file>``, plus one
+option of its own: ``--device {cuda,cpu}`` (default ``cuda``). With
+``cuda`` and no card the run fails with a clear message; it never falls
+back to the CPU.
+
+Not ported yet, each refused with a UsageError naming its ROADMAP.md item:
+batch mode (more than two paths) and ``--resume``; ``--mesh`` and the
+multi-host flags; ``--profile``. ``--engine`` accepts only ``auto``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from pathlib import Path
+
+from audio_fir_filter_tpu.utils.errors import (DiskerrorError, FileExists,
+                                               FileNotFound, StopNoError,
+                                               UsageError)
+from audio_fir_filter_tpu.utils.options import FilterOptions
+
+HELP_TEXT = """\
+Applies low-cut (high-pass) FIR filter to WAVE or AIFF file.
+Usage:
+  lowcut [options] <input_file> <output_file>
+  lowcut [options] <input_file1> [input_file2 ...] <output_directory>
+"""
+
+
+class _Parser(argparse.ArgumentParser):
+    """argparse that raises UsageError (exit 1) instead of exiting with 2."""
+
+    def error(self, message):
+        raise UsageError(message)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = _Parser(
+        prog="lowcut",
+        description=HELP_TEXT,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    p.add_argument("-f", "--frequency", type=float, default=15.0, metavar="Hz",
+                   help="Filter cutoff frequency in Hz. (default: 15)")
+    p.add_argument("-s", "--slope", type=float, default=10.0, metavar="Hz",
+                   help="Filter slope width in Hz. (default: 10)")
+    p.add_argument("-n", "--normalize", action="store_true",
+                   help="Normalize output to maximum level.")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="Verbose output.")
+    p.add_argument("-t", "--threads", type=int, default=0, metavar="N",
+                   help="Number of host worker threads "
+                        "(default is 2/3 of the processors available).")
+    p.add_argument("-O", "--overwrite", action="store_true",
+                   help="Overwrite existing files.")
+    p.add_argument("--filter", dest="filter_type", default="lowcut",
+                   choices=["lowcut", "highpass", "lowpass", "bandpass",
+                            "bandreject"],
+                   help="Filter family (windowed-sinc). 'lowcut' is the "
+                        "reference behavior; band filters take -f as the "
+                        "low edge and --frequency-high as the high edge. "
+                        "(default: lowcut)")
+    p.add_argument("-F", "--frequency-high", type=float, default=None,
+                   metavar="Hz",
+                   help="Band high edge in Hz (bandpass/bandreject only).")
+    p.add_argument("--precision", choices=["auto", "high", "fast"],
+                   default="auto",
+                   help="Convolution precision: 'high' = float64 FFT "
+                        "(matches float64 reference within 1 LSB @ 24-bit), "
+                        "'fast' = float32 FFT (within 1 LSB @ 16-bit), "
+                        "'auto' = 'fast' for <= 16-bit PCM outputs, 'high' "
+                        "otherwise. (default: auto)")
+    p.add_argument("--block-size", type=int, default=0, metavar="B",
+                   help="Overlap-save FFT size (power of two; 0 = auto).")
+    p.add_argument("--engine", choices=["auto"], default="auto",
+                   help="FFT engine: 'auto' = the CUDA segment-filter kernel "
+                        "on the card, its plain PyTorch version on the CPU. "
+                        "(default: auto)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="Device to filter on: 'cuda' = the CUDA card (an "
+                        "error if none is available), 'cpu' = the CPU. "
+                        "(default: cuda)")
+    p.add_argument("--mesh", type=str, default=None, metavar="DxT",
+                   help="Device mesh shape data x time, e.g. 1x8: shard the "
+                        "sample axis across T devices (halo exchange) and "
+                        "channels across D devices. Default: single device.")
+    p.add_argument("--coordinator", metavar="HOST:PORT", default=None,
+                   help="Multi-host: coordinator address (process 0's host).")
+    p.add_argument("--num-processes", type=int, default=None, metavar="N",
+                   help="Multi-host: total number of processes.")
+    p.add_argument("--process-id", type=int, default=None, metavar="I",
+                   help="Multi-host: this process's index (0-based).")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="Write a profiler trace of the run to DIR.")
+    p.add_argument("--json-metrics", action="store_true",
+                   help="Print per-stage timing metrics as JSON to stderr.")
+    p.add_argument("--resume", action="store_true",
+                   help="Batch mode: keep a manifest in the destination "
+                        "directory and skip files already completed by a "
+                        "previous (possibly failed) run with the same "
+                        "filter settings.")
+    p.add_argument("paths", nargs="*", help=argparse.SUPPRESS)
+    return p
+
+
+def _not_ported(what: str, item: str) -> UsageError:
+    return UsageError(f"{what} is not ported to the PyTorch package yet "
+                      f"(ROADMAP.md, Queue 1: {item}).")
+
+
+def _reject_unported(args) -> None:
+    if len(args.paths) > 2:
+        raise _not_ported("Batch mode (more than two paths)",
+                          "batch and manifest")
+    if args.resume:
+        raise _not_ported("--resume", "batch and manifest")
+    if args.mesh is not None:
+        raise _not_ported("--mesh", "parallel/ over NCCL")
+    for flag, value in (("--coordinator", args.coordinator),
+                        ("--num-processes", args.num_processes),
+                        ("--process-id", args.process_id)):
+        if value is not None:
+            raise _not_ported(flag, "parallel/ over NCCL")
+    if args.profile:
+        raise _not_ported("--profile", "--profile through torch.profiler")
+
+
+def _options_from_args(args) -> FilterOptions:
+    return FilterOptions(
+        freq=args.frequency,
+        slope=args.slope,
+        filter_type=args.filter_type,
+        freq_hi=args.frequency_high,
+        normalize=args.normalize,
+        verbose=args.verbose,
+        num_threads=args.threads,
+        precision=args.precision,
+        engine=args.engine,
+        block_size=args.block_size,
+        json_metrics=args.json_metrics,
+    )
+
+
+def _emit_metrics(metrics: dict, path, args) -> None:
+    if args.json_metrics:
+        import json
+
+        payload = {"file": str(path), "device": args.device, **metrics}
+        fr, fs = metrics.get("frames", 0), metrics.get("filter", 0.0)
+        if fs > 0:
+            payload["samples_per_sec"] = fr * metrics.get("channels", 1) / fs
+        print(json.dumps(payload), file=sys.stderr)
+
+
+def run(argv=None) -> None:
+    """Scenario logic (raises typed exceptions; `main` maps to exit codes)."""
+    args = build_parser().parse_args(argv)
+
+    if args.filter_type in ("bandpass", "bandreject"):
+        if args.frequency_high is None:
+            raise UsageError(
+                f"--filter {args.filter_type} requires --frequency-high.")
+        if args.frequency_high <= args.frequency:
+            raise UsageError(
+                "--frequency-high must exceed --frequency "
+                f"({args.frequency_high} <= {args.frequency}).")
+    elif args.frequency_high is not None:
+        raise UsageError(
+            "--frequency-high only applies to --filter bandpass/bandreject.")
+    _reject_unported(args)
+
+    opts = _options_from_args(args)
+    if opts.verbose:
+        print(f"Using {opts.resolved_num_threads()} threads.")
+
+    paths = [Path(s) for s in args.paths]
+    if len(paths) != 2:
+        raise UsageError("Invalid number of parameters. Need at least 2.")
+    input_path, output_path = paths
+    if not input_path.is_file():
+        raise FileNotFound(str(input_path))
+    if output_path.exists() and output_path.is_dir():
+        raise UsageError(
+            "With two parameters the second parameter must be a file path, "
+            "not a directory.")
+    if input_path.suffix != output_path.suffix:
+        raise UsageError(
+            "Input and output file types (WAVE or AIFF) must be the same "
+            "(extensions must match).")
+    if output_path.exists() and not args.overwrite:
+        raise FileExists(str(output_path))
+
+    # Imported here so --help and usage errors pay no torch start-up.
+    from .pipeline import process_file
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if output_path.exists():
+        os.remove(output_path)
+    metrics = process_file(input_path, output_path, opts, device=device)
+    _emit_metrics(metrics, output_path, args)
+
+
+def main(argv=None) -> int:
+    """Entry point: exceptions map to exit codes as in the JAX package."""
+    try:
+        run(argv)
+    except StopNoError as e:
+        msg = str(e)
+        if msg:
+            print(msg)
+        return 0
+    except SystemExit as e:  # argparse --help exits 0
+        return int(e.code or 0)
+    except DiskerrorError as e:
+        print(e, file=sys.stderr)
+        return 1
+    except Exception as e:  # noqa: BLE001 — every error is exit code 1
+        print(e, file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,171 @@
+"""Overlap-save FFT convolution: plan and filters.
+
+Counterpart of ``audio_fir_filter_tpu/ops/overlap_save.py``. Semantics are
+the zero-padded "same" convolution of the float64 oracle:
+
+    out[i] = sum_{k=0}^{M} h[k] * x[i - Mo2 + k],   x == 0 outside [0, N)
+
+With FFT size B and hop L = B - M, block j reads the padded input
+xp[j*L : j*L + B] (xp = [Mo2 zeros | x | zeros]); the circular convolution
+of the block with the reversed kernel is alias-free at positions [M, B),
+which are exactly out[j*L : (j+1)*L].
+
+Two precisions: ``fast`` computes in float32 (within 1 LSB @ 16-bit of the
+oracle) and ``high`` in native float64 (within 1 LSB @ 24-bit). Every
+filter runs through :func:`.segment_filter.segment_filter`: the CUDA kernel
+for tensors on the card, the plain PyTorch version
+(:func:`_same_filter_reference`) for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from . import segment_filter as sf
+
+FAST = sf.FAST
+HIGH = sf.HIGH
+
+_SPECTRUM_DTYPE = {FAST: torch.complex64, HIGH: torch.complex128}
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def choose_block_size(num_taps: int, requested: int = 0,
+                      min_size: int = 1 << 13, max_size: int = 1 << 21) -> int:
+    """FFT size B for kernel length T, with the JAX package's contract and
+    choices (so both packages plan alike): ``requested`` rounds up to a
+    power of two and must exceed M; otherwise the smallest power of two
+    >= 4*M within [min_size, max_size] (kept above 2*M), with a 2^18 floor
+    for M >= 2^13 — 2^18 at M = 17,640 and at M = 38,400. Retuning B for
+    the card is open work (ROADMAP)."""
+    m = num_taps - 1
+    if requested:
+        b = _next_pow2(requested)
+        if b <= m:
+            raise ValueError(f"block size {requested} must exceed kernel order {m}")
+        return b
+    b = max(min_size, _next_pow2(4 * max(m, 1)))
+    if m >= (1 << 13):
+        b = max(b, 1 << 18)
+    while b > max_size and b >= 4 * _next_pow2(m + 1):
+        b >>= 1
+    return b
+
+
+@dataclasses.dataclass(frozen=True)
+class OverlapSavePlan:
+    """Convolution plan: sizes plus the device spectrum.
+
+    ``H`` is the spectrum of the reversed, zero-padded taps, computed on the
+    host in float64 and stored in the kernel's own layout
+    (:func:`.segment_filter.spectrum_layout`, [N1, N2]): complex64 for
+    ``fast``, complex128 for ``high``.
+    """
+
+    num_taps: int          # T = M + 1
+    block_size: int        # B (power of two)
+    precision: str
+    device: torch.device
+    H: torch.Tensor = dataclasses.field(compare=False, repr=False)
+
+    @property
+    def m(self) -> int:
+        return self.num_taps - 1
+
+    @property
+    def mo2(self) -> int:
+        return self.m // 2
+
+    @property
+    def hop(self) -> int:
+        return self.block_size - self.m
+
+
+def _plan(taps: np.ndarray, precision: str, b: int, device) -> OverlapSavePlan:
+    dtype = _SPECTRUM_DTYPE.get(precision)
+    if dtype is None:
+        raise ValueError(f"unknown precision {precision!r} (use 'fast' or 'high')")
+    dev = resolve_device(device)
+    if not sf.qualifies(len(taps), b):
+        raise ValueError(f"no segment filter for {len(taps)} taps at B={b}")
+    H = torch.from_numpy(sf.spectrum_layout(taps, b)).to(device=dev, dtype=dtype)
+    return OverlapSavePlan(len(taps), b, precision, dev, H)
+
+
+def make_plan(taps: np.ndarray, precision: str = HIGH, block_size: int = 0,
+              device="cuda") -> OverlapSavePlan:
+    """Plan for odd-length float64 ``taps`` on ``device`` (raises if a CUDA
+    device is asked for and there is no card)."""
+    taps = np.asarray(taps, dtype=np.float64)
+    if len(taps) % 2 != 1:
+        raise ValueError("taps must have odd length (type-I linear phase)")
+    return _plan(taps, precision, choose_block_size(len(taps), block_size),
+                 device)
+
+
+def plan_from_jax(jax_plan, taps: np.ndarray, device) -> OverlapSavePlan:
+    """The port's plan for the configuration of a JAX package plan: the same
+    float64 taps with its ``num_taps``, ``block_size`` and ``precision``.
+    Used to run both packages on one configuration."""
+    taps = np.asarray(taps, dtype=np.float64)
+    if len(taps) != jax_plan.num_taps:
+        raise ValueError(f"{len(taps)} taps for a JAX plan of "
+                         f"{jax_plan.num_taps}")
+    return _plan(taps, jax_plan.precision, jax_plan.block_size, device)
+
+
+# ------------------------------------------------------------------ filters
+
+def _as_input(x, plan: OverlapSavePlan) -> tuple[torch.Tensor, bool]:
+    x = torch.as_tensor(x)
+    x = x.to(device=plan.device, dtype=torch.float32).contiguous()
+    squeeze = x.dim() == 1
+    return (x[None, :] if squeeze else x), squeeze
+
+
+def _same_filter_reference(x: torch.Tensor, plan: OverlapSavePlan) -> torch.Tensor:
+    """The plain PyTorch version of :func:`same_filter` on [C, N] float32:
+    ``F.pad`` + ``unfold`` blocks, ``rfft`` * H * ``irfft`` (float64 for
+    ``high``, float32 for ``fast``), positions [M, B) kept. Tests and
+    chip_smoke.py hold the kernel against it; the filters reach it only for
+    CPU tensors."""
+    return sf.reference(x, plan, plan.mo2, x.shape[1])[0]
+
+
+def same_filter_peak(x, plan: OverlapSavePlan):
+    """Filter [N] or [C, N] with 'same' semantics; returns (y float32 on the
+    plan's device, peak max|y| as a 0-d tensor, taken inside the kernel)."""
+    x, squeeze = _as_input(x, plan)
+    y, peak = sf.segment_filter(x, plan, plan.mo2, x.shape[1])
+    return (y[0] if squeeze else y), peak
+
+
+def extended_filter_peak(xe, plan: OverlapSavePlan, out_len: int):
+    """Filter with explicit halos: ``xe`` is [C, S + M] = [left Mo2 | body S
+    | right Mo2]; returns (out[0:out_len] of the body, its peak). The
+    primitive of host-side segmentation: halos replace the zero padding
+    except at the true signal edges. The peak covers only the ``out_len``
+    returned samples, so a short last segment needs no host re-scan."""
+    xe, squeeze = _as_input(xe, plan)
+    y, peak = sf.segment_filter(xe, plan, 0, out_len)
+    return (y[0] if squeeze else y), peak
+
+
+def same_filter(x, plan: OverlapSavePlan) -> torch.Tensor:
+    """Filter [N] or [C, N] float32 with reference 'same' semantics."""
+    return same_filter_peak(x, plan)[0]
+
+
+def extended_filter(xe, plan: OverlapSavePlan, out_len: int) -> torch.Tensor:
+    """:func:`extended_filter_peak` without the peak."""
+    return extended_filter_peak(xe, plan, out_len)[0]

@@ -1,0 +1,237 @@
+"""Whole-segment overlap-save filtering: the CUDA kernel's wrapper, its
+host tables, and its plain PyTorch version.
+
+Counterpart of the segment path of ``audio_fir_filter_tpu/ops/pallas_fft.py``
+(``pallas_segment_filter`` and its framing/qualifier helpers). The kernel
+(``csrc/segment_filter.cu``) computes, for i in [0, out_len),
+
+    y[i] = sum_{k=0}^{M} h[k] * x[i - left + k],   x == 0 outside [0, n_in)
+
+in three modes: ``f32`` (float32 in/out and arithmetic), ``f64`` (float32
+in/out, float64 arithmetic) and ``i16`` (int16 PCM in/out, float32
+arithmetic, the codec's quantization on write). It also returns the
+output's peak max|y| over [0, out_len).
+
+The wrapper's rule: a CUDA tensor launches the kernel (and raises if the
+launch fails); a CPU tensor takes the plain version (:func:`reference`).
+There is no fallback between the two.
+
+Framing is plain: hop = B - M and left pad = Mo2. The 8/16-row quanta and
+the ``c >= 128`` floor of the TPU framing are Mosaic tiling rules and have
+no counterpart here, so one qualifier serves every mode.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+FAST = "fast"
+HIGH = "high"
+
+# Kernel launches per mode, counted by :func:`segment_filter` where it
+# launches and nowhere else (chip_smoke.py reads them to show the main
+# path went through the kernel).
+launches = {"f32": 0, "f64": 0, "i16": 0}
+
+# One FFT side is at most 2^13 points (the kernel's shared-memory tile).
+_MAX_LOG_SIDE = 13
+# Scratch for one launch chunk of pairs ([pairs, B] complex): 64 float64
+# pairs at B = 2^18, so a stereo 2^24-frame segment runs in two chunks.
+_SCRATCH_BYTES = 256 << 20
+_MAX_GRID_Y = 65535
+
+
+def split(b: int) -> tuple[int, int]:
+    """(log2 N1, log2 N2) of the four-step split B = N1 * N2, N1 >= N2."""
+    lb = b.bit_length() - 1
+    return (lb + 1) // 2, lb // 2
+
+
+def split_shape(b: int) -> tuple[int, int]:
+    """(N1, N2): the shape of the kernel-layout spectrum."""
+    l1, l2 = split(b)
+    return 1 << l1, 1 << l2
+
+
+def segment_framing(m: int, b: int) -> tuple[int, int]:
+    """(hop, left pad) for kernel order M at block size B: hop = B - M,
+    left = Mo2. Block j's window starts at j * hop of the padded signal and
+    its alias-free positions [M, B) are outputs [j*hop, (j+1)*hop)."""
+    return b - m, m // 2
+
+
+def qualifies(num_taps: int, b: int) -> bool:
+    """Whether the kernel takes this (taps, block) shape: an odd tap count
+    (type-I: 2*Mo2 == M), B a power of two of at least 4 points with each
+    four-step side within the kernel's tile, and B > M (hop > 0)."""
+    m = num_taps - 1
+    if num_taps < 1 or m % 2:
+        return False
+    if b < 4 or b & (b - 1):
+        return False
+    if split(b)[0] > _MAX_LOG_SIDE:
+        return False
+    return segment_framing(m, b)[0] > 0
+
+
+@functools.lru_cache(maxsize=16)
+def _bitrev(log_n: int) -> np.ndarray:
+    n = 1 << log_n
+    i = np.arange(n, dtype=np.int64)
+    r = np.zeros(n, dtype=np.int64)
+    for bit in range(log_n):
+        r |= ((i >> bit) & 1) << (log_n - 1 - bit)
+    return r
+
+
+def spectrum_layout(taps: np.ndarray, b: int) -> np.ndarray:
+    """Float64 spectrum of the reversed, zero-padded taps in the kernel's
+    order, [N1, N2] complex128: entry (pos, q) holds H[k1 + N1*k2] with
+    k1 = bitrev(pos), k2 = bitrev(q) — where the kernel's forward column
+    and row FFTs (decimation in frequency) leave each frequency."""
+    taps = np.asarray(taps, dtype=np.float64)
+    hr = np.zeros(b, dtype=np.float64)
+    hr[: len(taps)] = taps[::-1]
+    l1, l2 = split(b)
+    full = np.fft.fft(hr)
+    return full[_bitrev(l1)[:, None] + (1 << l1) * _bitrev(l2)[None, :]]
+
+
+@functools.lru_cache(maxsize=16)
+def _natural_index(b: int) -> np.ndarray:
+    """Flat positions in the kernel layout of frequencies 0..B/2."""
+    l1, l2 = split(b)
+    k = np.arange(b // 2 + 1, dtype=np.int64)
+    return _bitrev(l1)[k & ((1 << l1) - 1)] * (1 << l2) + _bitrev(l2)[k >> l1]
+
+
+def natural_spectrum(H: torch.Tensor) -> torch.Tensor:
+    """rfft-order half spectrum [B/2 + 1] from the kernel-layout ``H``."""
+    b = H.numel()
+    idx = torch.from_numpy(_natural_index(b)).to(H.device)
+    return H.reshape(-1)[idx]
+
+
+@functools.lru_cache(maxsize=8)
+def kernel_tables(b: int, dtype: torch.dtype, device: torch.device):
+    """The kernel's constant tables, computed in float64 on the host and
+    rounded to ``dtype`` (complex64 / complex128) on ``device``:
+
+    - ``tw4`` [N1, N2]: four-step twiddle exp(-2*pi*i * n2 * bitrev(pos) / B);
+    - ``w1`` [N1/2], ``w2`` [N2/2]: exp(-2*pi*i * k / N) of each side's FFT.
+    """
+    l1, l2 = split(b)
+    n1, n2 = 1 << l1, 1 << l2
+    k = (np.arange(n2, dtype=np.int64)[None, :] * _bitrev(l1)[:, None]) % b
+    tw4 = np.exp(-2j * np.pi * k / b)
+
+    def roots(n):
+        return np.exp(-2j * np.pi * np.arange(n // 2) / n)
+
+    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device=device,
+                                                              dtype=dtype)
+                 for t in (tw4, roots(n1), roots(n2)))
+
+
+def _check(x: torch.Tensor, plan, left: int, out_len: int, i16_io: bool):
+    if not qualifies(plan.num_taps, plan.block_size):
+        raise ValueError(
+            f"segment filter does not take num_taps={plan.num_taps}, "
+            f"B={plan.block_size} (needs odd taps, B a power of two > M)")
+    if i16_io and plan.precision != FAST:
+        raise ValueError("16-bit I/O runs float32 arithmetic: it needs a "
+                         f"'fast' plan, got {plan.precision!r}")
+    want = torch.int16 if i16_io else torch.float32
+    if x.dtype != want:
+        raise TypeError(f"segment filter input must be {want}, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"segment filter input must be [C, N], got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("segment filter input must be contiguous")
+    if x.device != plan.H.device:
+        raise ValueError(f"input on {x.device} but the plan's spectrum is on "
+                         f"{plan.H.device}")
+    if left < 0 or out_len < 0:
+        raise ValueError(f"left ({left}) and out_len ({out_len}) must be >= 0")
+
+
+def segment_filter(x: torch.Tensor, plan, left: int, out_len: int,
+                   i16_io: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Filter [C, n_in] into (y [C, out_len], peak) — see the module
+    docstring for the formula. ``y`` has ``x``'s dtype (float32, or int16
+    with ``i16_io``); ``peak`` is a 0-d float32 tensor on ``x``'s device
+    (for int16 the peak of |PCM code|). CUDA tensors run the kernel, CPU
+    tensors :func:`reference`."""
+    _check(x, plan, left, out_len, i16_io)
+    if x.device.type == "cpu":
+        return reference(x, plan, left, out_len, i16_io)
+    if x.device.type != "cuda":
+        raise ValueError(f"segment filter runs on 'cuda' or 'cpu', not {x.device}")
+    return _launch(x, plan, left, out_len, i16_io)
+
+
+def _launch(x, plan, left, out_len, i16_io):
+    from . import _build
+
+    mode = "i16" if i16_io else ("f64" if plan.precision == HIGH else "f32")
+    dev = x.device
+    c, n_in = x.shape
+    b, m = plan.block_size, plan.m
+    y = torch.empty((c, out_len), dtype=x.dtype, device=dev)
+    peak = torch.zeros((), dtype=torch.float32, device=dev)
+    if c == 0 or out_len == 0:
+        return y, peak
+    H = plan.H
+    if H.shape != split_shape(b) or not H.is_contiguous():
+        raise ValueError(f"plan spectrum must be contiguous {split_shape(b)}")
+    tw4, w1, w2 = kernel_tables(b, H.dtype, dev)
+    hop = b - m
+    pairs = c * ((-(-out_len // hop) + 1) // 2)
+    chunk = max(1, min(pairs, _MAX_GRID_Y,
+                       _SCRATCH_BYTES // (b * H.element_size())))
+    scratch = torch.empty((chunk, b), dtype=H.dtype, device=dev)
+    l1, l2 = split(b)
+    fn = getattr(_build.library(), f"lowcut_segment_filter_{mode}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x.data_ptr(), y.data_ptr(), peak.data_ptr(), H.data_ptr(),
+                tw4.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                scratch.data_ptr(), c, n_in, out_len, left, m, l1, l2,
+                chunk, stream)
+    if rc != 0:
+        raise RuntimeError(f"segment filter kernel ({mode}) failed: "
+                           f"CUDA error {rc}")
+    launches[mode] += 1
+    return y, peak
+
+
+def reference(x: torch.Tensor, plan, left: int, out_len: int,
+              i16_io: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the kernel, same contract: overlapped
+    blocks by ``F.pad`` + ``Tensor.unfold``, ``rfft`` * H * ``irfft``,
+    positions [M, B) kept. Float64 arithmetic for a ``high`` plan, float32
+    otherwise (and for 16-bit I/O). Runs on any device."""
+    b, m = plan.block_size, plan.m
+    hop = b - m
+    c, n_in = x.shape
+    high = plan.precision == HIGH and not i16_io
+    rdt = torch.float64 if high else torch.float32
+    xf = x.to(rdt) / 32768.0 if i16_io else x.to(rdt)
+    nb = -(-out_len // hop)
+    if nb == 0 or c == 0:
+        y = torch.empty((c, out_len), dtype=x.dtype, device=x.device)
+        return y, torch.zeros((), dtype=torch.float32, device=x.device)
+    need = (nb - 1) * hop + b
+    xp = F.pad(xf, (left, max(0, need - left - n_in)))[:, :need]
+    blocks = xp.unfold(1, b, hop)                      # [C, nb, B] view
+    spec = torch.fft.rfft(blocks) * natural_spectrum(plan.H)
+    yb = torch.fft.irfft(spec, n=b)[..., m:]           # [C, nb, hop]
+    y = yb.reshape(c, nb * hop)[:, :out_len].to(torch.float32)
+    if i16_io:
+        q = torch.clamp(torch.round(y * 32768.0), -32768.0, 32767.0)
+        return q.to(torch.int16), q.abs().max().to(torch.float32)
+    return y.contiguous(), y.abs().max()

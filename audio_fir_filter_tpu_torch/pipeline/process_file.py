@@ -1,0 +1,113 @@
+"""Per-file pipeline: read -> design -> filter on the device -> normalize
+-> write.
+
+Counterpart of ``audio_fir_filter_tpu/pipeline/process_file.py``, with the
+same stage order, status lines and metrics keys:
+
+- 16-bit PCM sources under ``fast`` precision without ``-n`` take the
+  16-bit-native route (int16 in and out of the kernel); if the output
+  reaches the int16 rails the file is refiltered in float32, so the
+  normalize-on-clip rule sees the unclipped peak.
+- One common scale normalizes when the filtered peak exceeds full scale,
+  or on ``-n``: ``(max_mag > 1.0 or -n) and max_mag > 0``.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+
+from audio_fir_filter_tpu import audio
+from audio_fir_filter_tpu.audio.file import _scale_common
+from audio_fir_filter_tpu.audio.format import Encoding
+from audio_fir_filter_tpu.utils.options import FilterOptions, resolve_precision
+from audio_fir_filter_tpu.utils.progress import ProgressBar
+
+from ..models import make_model
+from ..ops import segment_filter as sf
+from .stream import filter_array_streamed, filter_array_streamed_i16
+
+
+def _use_i16_route(opts, precision: str, plan, data) -> bool:
+    """The 16-bit-native route applies when it is exact: ``fast``
+    precision, a 16-bit PCM source (its float32 decode is an exact int16
+    round trip), no explicit normalize, and a shape the kernel takes."""
+    return (precision == "fast"
+            and not opts.normalize
+            and data.fmt.encoding == Encoding.PCM_16
+            and sf.qualifies(plan.num_taps, plan.block_size))
+
+
+def process_file(input_path, output_path, opts: FilterOptions,
+                 show_progress: bool = True, device="cuda") -> dict:
+    """Filter one audio file on ``device``. Returns per-stage timing
+    metrics (seconds) plus frames, channels, sample_rate, peak and
+    precision."""
+    t = {}
+
+    def show_status(msg: str) -> None:
+        if opts.verbose:
+            print(msg)
+
+    show_status("Opening input file.")
+    t0 = time.perf_counter()
+    data = audio.read_audio(input_path)
+    t["read"] = time.perf_counter() - t0
+
+    name = getattr(input_path, "name", None) or str(input_path).rsplit("/", 1)[-1]
+    print(f"Processing file: {name}")
+
+    fs = data.fmt.sample_rate
+    show_status("Creating sinc kernel for this file's sample rate.")
+    t0 = time.perf_counter()
+    model = make_model(opts.filter_type, opts.freq, opts.slope, opts.freq_hi)
+    precision = resolve_precision(opts.precision, data.fmt.encoding)
+    if precision != opts.precision:
+        show_status(f"Precision 'auto' -> '{precision}' for "
+                    f"{data.fmt.encoding.bits}-bit output.")
+    plan = model.plan(fs, precision=precision, block_size=opts.block_size,
+                      device=device)
+    t["design"] = time.perf_counter() - t0
+
+    show_status("Filtering.")
+    total = data.num_frames * data.num_channels
+    bar = ProgressBar(total, enabled=show_progress and sys.stdout.isatty())
+    t0 = time.perf_counter()
+    filtered = max_mag = None
+    if _use_i16_route(opts, precision, plan, data):
+        x16 = np.asarray(data.samples * np.float32(32768.0), np.int16)
+        y16, peak16, saturated = filter_array_streamed_i16(
+            x16, plan, progress_cb=bar.update)
+        if saturated:
+            show_status("Clipping detected; refiltering at float "
+                        "precision for normalize.")
+            bar.clear()
+        else:
+            filtered = np.asarray(y16, np.float32) / np.float32(32768.0)
+            max_mag = peak16 / 32768.0
+    if filtered is None:
+        filtered, max_mag = filter_array_streamed(
+            data.samples, plan, progress_cb=bar.update)
+    t["filter"] = time.perf_counter() - t0
+    bar.final()
+
+    t0 = time.perf_counter()
+    if (max_mag > 1.0 or opts.normalize) and max_mag > 0.0:
+        show_status("Doing audio normalize.")
+        filtered = _scale_common(filtered, max_mag)
+    t["normalize"] = time.perf_counter() - t0
+
+    show_status("Writing output file.")
+    t0 = time.perf_counter()
+    audio.write_audio(output_path, data, samples=filtered)
+    t["write"] = time.perf_counter() - t0
+
+    show_status("")
+    t["frames"] = data.num_frames
+    t["channels"] = data.num_channels
+    t["sample_rate"] = fs
+    t["peak"] = max_mag
+    t["precision"] = precision
+    return t
