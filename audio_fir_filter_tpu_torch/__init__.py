@@ -4,12 +4,16 @@ A second package beside :mod:`audio_fir_filter_tpu` (the JAX reference,
 unchanged). Module layout mirrors it so each module's counterpart is easy
 to find:
 
-- ``ops/``: float64 kernel design, the overlap-save plan and filters, and
-  the segment filter whose CUDA kernel (``csrc/segment_filter.cu``)
-  replaces the JAX package's Pallas ``pallas_segment_filter``.
+- ``ops/``: float64 kernel design, the overlap-save plan, its engines
+  and filters; the segment filter and the block convolution, whose CUDA
+  kernels (``csrc/segment_filter.cu``, ``csrc/conv_blocks.cu``) replace the
+  JAX package's Pallas ``pallas_segment_filter`` and
+  ``pallas_conv_real_blocks``.
 - ``models/``: the five windowed-sinc filter families and their plans.
-- ``pipeline/``: segment streaming and the per-file pipeline.
-- ``cli.py``: the ``lowcut`` command line, plus ``--device``.
+- ``pipeline/``: segment streaming, the per-file pipeline, the pipelined
+  batch and its resume manifest.
+- ``cli.py``: the ``lowcut`` command line (both scenarios), plus
+  ``--device``.
 
 The port imports ``torch`` and never ``jax``. It reuses the JAX package's
 host-only modules that never import JAX: ``audio`` (containers, codec,

@@ -1,15 +1,19 @@
 """``lowcut`` command line of the PyTorch/CUDA port.
 
 The parser surface, help text, error texts and exit codes of
-``audio_fir_filter_tpu/cli.py`` (0 for --help, 1 for any error), for the
-two-path scenario ``lowcut [options] <input_file> <output_file>``, plus one
-option of its own: ``--device {cuda,cpu}`` (default ``cuda``). With
-``cuda`` and no card the run fails with a clear message; it never falls
-back to the CPU.
+``audio_fir_filter_tpu/cli.py`` (0 for --help, 1 for any error), for both
+scenarios: ``lowcut [options] <input_file> <output_file>`` and the batch
+``lowcut [options] <in1> [in2 ...] <output_directory>`` (with
+``--resume``). One option is the port's own: ``--device {cuda,cpu}``
+(default ``cuda``). With ``cuda`` and no card the run fails with a clear
+message; it never falls back to the CPU.
+
+``--engine``: ``auto`` and ``pallas`` run the segment kernel; ``fourstep``,
+``pease`` and ``stockham`` run the generic block path, one block kernel
+for all three.
 
 Not ported yet, each refused with a UsageError naming its ROADMAP.md item:
-batch mode (more than two paths) and ``--resume``; ``--mesh`` and the
-multi-host flags; ``--profile``. ``--engine`` accepts only ``auto``.
+``--mesh`` and the multi-host flags; ``--profile``.
 """
 
 from __future__ import annotations
@@ -77,10 +81,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "otherwise. (default: auto)")
     p.add_argument("--block-size", type=int, default=0, metavar="B",
                    help="Overlap-save FFT size (power of two; 0 = auto).")
-    p.add_argument("--engine", choices=["auto"], default="auto",
-                   help="FFT engine: 'auto' = the CUDA segment-filter kernel "
-                        "on the card, its plain PyTorch version on the CPU. "
-                        "(default: auto)")
+    p.add_argument("--engine",
+                   choices=["auto", "pallas", "fourstep", "pease", "stockham"],
+                   default="auto",
+                   help="Convolution engine: 'pallas' = the whole-segment "
+                        "kernel; 'fourstep', 'pease' and 'stockham' = the "
+                        "generic block path (one block-convolution kernel "
+                        "for all three). Each runs its CUDA kernel on the "
+                        "card and its plain PyTorch version on the CPU. "
+                        "'auto' = pallas. (default: auto)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Device to filter on: 'cuda' = the CUDA card (an "
                         "error if none is available), 'cpu' = the CPU. "
@@ -114,11 +123,6 @@ def _not_ported(what: str, item: str) -> UsageError:
 
 
 def _reject_unported(args) -> None:
-    if len(args.paths) > 2:
-        raise _not_ported("Batch mode (more than two paths)",
-                          "batch and manifest")
-    if args.resume:
-        raise _not_ported("--resume", "batch and manifest")
     if args.mesh is not None:
         raise _not_ported("--mesh", "parallel/ over NCCL")
     for flag, value in (("--coordinator", args.coordinator),
@@ -179,31 +183,65 @@ def run(argv=None) -> None:
         print(f"Using {opts.resolved_num_threads()} threads.")
 
     paths = [Path(s) for s in args.paths]
-    if len(paths) != 2:
+    # The pipeline is imported in each branch, after its usage checks, so
+    # --help and usage errors pay no torch start-up.
+    if len(paths) == 2:
+        # Scenario 1: input file -> output file.
+        input_path, output_path = paths
+        if not input_path.is_file():
+            raise FileNotFound(str(input_path))
+        if output_path.exists() and output_path.is_dir():
+            raise UsageError(
+                "With two parameters the second parameter must be a file path, "
+                "not a directory.")
+        if input_path.suffix != output_path.suffix:
+            raise UsageError(
+                "Input and output file types (WAVE or AIFF) must be the same "
+                "(extensions must match).")
+        if output_path.exists() and not args.overwrite:
+            raise FileExists(str(output_path))
+
+        from .pipeline import process_file
+        from .utils.device import resolve_device
+
+        device = resolve_device(args.device)
+        if output_path.exists():
+            os.remove(output_path)
+        metrics = process_file(input_path, output_path, opts, device=device)
+        _emit_metrics(metrics, output_path, args)
+
+    elif len(paths) > 2:
+        # Scenario 2: input files -> output directory.
+        dest_dir = paths[-1]
+        if dest_dir.exists():
+            if not dest_dir.is_dir():
+                raise UsageError(
+                    f"Destination exists but is not a directory: {dest_dir}")
+        elif dest_dir.suffix:
+            raise UsageError(
+                f"Destination directory '{dest_dir}' does not exist and "
+                f"has a suffix. Undefined scenario.")
+
+        from .pipeline.batch import run_batch
+        from .pipeline.manifest import BatchManifest, options_fingerprint
+        from .utils.device import resolve_device
+
+        device = resolve_device(args.device)
+        if not dest_dir.exists():
+            if opts.verbose:
+                print(f"Creating directory: {dest_dir}")
+            dest_dir.mkdir(parents=True)
+        manifest = (BatchManifest(dest_dir, options_fingerprint(opts, device))
+                    if args.resume else None)
+        # Pipelined batch: host reader/writer threads (the -t pool) overlap
+        # file I/O with the device loop.
+        run_batch(paths[:-1], dest_dir, opts, overwrite=args.overwrite,
+                  manifest=manifest, device=device,
+                  metrics_cb=(lambda m, d: _emit_metrics(m, d, args))
+                  if args.json_metrics else None)
+
+    else:
         raise UsageError("Invalid number of parameters. Need at least 2.")
-    input_path, output_path = paths
-    if not input_path.is_file():
-        raise FileNotFound(str(input_path))
-    if output_path.exists() and output_path.is_dir():
-        raise UsageError(
-            "With two parameters the second parameter must be a file path, "
-            "not a directory.")
-    if input_path.suffix != output_path.suffix:
-        raise UsageError(
-            "Input and output file types (WAVE or AIFF) must be the same "
-            "(extensions must match).")
-    if output_path.exists() and not args.overwrite:
-        raise FileExists(str(output_path))
-
-    # Imported here so --help and usage errors pay no torch start-up.
-    from .pipeline import process_file
-    from .utils.device import resolve_device
-
-    device = resolve_device(args.device)
-    if output_path.exists():
-        os.remove(output_path)
-    metrics = process_file(input_path, output_path, opts, device=device)
-    _emit_metrics(metrics, output_path, args)
 
 
 def main(argv=None) -> int:

@@ -40,41 +40,17 @@
 //      the output peak max|y| over written positions (atomicMax on the float
 //      bits, which order like the values for non-negative floats).
 // All twiddles and H come from host float64 tables (rounded to float for the
-// f32 modes); no fast-math sin/cos is used. Making this fast (wgmma DFT as a
-// matmul, TMA, fewer sweeps) is later work.
+// f32 modes); no fast-math sin/cos is used. The FFTs, pass 2 and the column
+// passes' shared halves live in fourstep.cuh (shared with conv_blocks.cu);
+// this file holds the signal gather, the valid-hop scatter and the peak.
+// Making this fast (wgmma DFT as a matmul, TMA, fewer sweeps) is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fourstep.cuh"
+
 namespace {
-
-constexpr int kThreads = 256;
-// Elements of one shared-memory FFT tile: 8192 complex = 64 KB (float) or
-// 128 KB (double), above the 48 KB default, hence the attribute below.
-constexpr int kTileElems = 8192;
-
-template <typename T>
-struct alignas(2 * sizeof(T)) Cx {
-  T re, im;
-};
-
-template <typename T>
-__device__ __forceinline__ Cx<T> cadd(Cx<T> a, Cx<T> b) {
-  return {a.re + b.re, a.im + b.im};
-}
-template <typename T>
-__device__ __forceinline__ Cx<T> csub(Cx<T> a, Cx<T> b) {
-  return {a.re - b.re, a.im - b.im};
-}
-template <typename T>
-__device__ __forceinline__ Cx<T> cmul(Cx<T> a, Cx<T> b) {
-  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
-}
-// a * conj(b)
-template <typename T>
-__device__ __forceinline__ Cx<T> cmulc(Cx<T> a, Cx<T> b) {
-  return {a.re * b.re + a.im * b.im, a.im * b.re - a.re * b.im};
-}
 
 template <typename T>
 __device__ __forceinline__ T load_sample(float v) { return static_cast<T>(v); }
@@ -101,60 +77,6 @@ __device__ __forceinline__ float store_sample(int16_t* dst, T v) {
   return fabsf(q);
 }
 
-// In-place radix-2 FFTs over a tile of W transforms of length L = 2^logL,
-// element (pos, w) at s[pos * W + w]. tw[k] = exp(-2*pi*i*k/L), k < L/2.
-// The caller synchronizes before the first stage; every stage ends with a
-// barrier.
-
-// Forward, decimation in frequency: natural order in, bit-reversed out.
-template <typename T>
-__device__ void fft_dif(Cx<T>* s, int W, int logL, const Cx<T>* tw) {
-  const int nbf = W << (logL - 1);
-  for (int lh = logL - 1; lh >= 0; --lh) {
-    const int h = 1 << lh;
-    const int tshift = logL - 1 - lh;
-    for (int t = threadIdx.x; t < nbf; t += blockDim.x) {
-      const int w = t % W;
-      const int b = t / W;
-      const int j = b & (h - 1);
-      const int lo = (((b >> lh) << (lh + 1)) + j) * W + w;
-      const int hi = lo + h * W;
-      const Cx<T> a = s[lo], c = s[hi];
-      s[lo] = cadd(a, c);
-      s[hi] = cmul(csub(a, c), tw[j << tshift]);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse (conjugate twiddles, no scaling), decimation in time:
-// bit-reversed order in, natural out.
-template <typename T>
-__device__ void ifft_dit(Cx<T>* s, int W, int logL, const Cx<T>* tw) {
-  const int nbf = W << (logL - 1);
-  for (int lh = 0; lh < logL; ++lh) {
-    const int h = 1 << lh;
-    const int tshift = logL - 1 - lh;
-    for (int t = threadIdx.x; t < nbf; t += blockDim.x) {
-      const int w = t % W;
-      const int b = t / W;
-      const int j = b & (h - 1);
-      const int lo = (((b >> lh) << (lh + 1)) + j) * W + w;
-      const int hi = lo + h * W;
-      const Cx<T> a = s[lo];
-      const Cx<T> c = cmulc(s[hi], tw[j << tshift]);
-      s[lo] = cadd(a, c);
-      s[hi] = csub(a, c);
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T>
-__device__ void load_table(Cx<T>* dst, const Cx<T>* src, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
 struct Geometry {
   long long n_in;        // input frames per channel
   long long out_len;     // output frames per channel
@@ -163,80 +85,40 @@ struct Geometry {
   long long pairs_per_ch;
   long long pair0;       // first global pair of this chunk
   int m;                 // kernel order M
-  int log_n1, log_n2;    // B = 2^log_n1 * 2^log_n2
-  int tc;                // columns per tile (passes 1 and 3)
-  int tr;                // rows per tile (pass 2)
+  Split sp;              // B = N1 * N2 and the tile widths
 };
 
 // Pass 1: forward column FFTs of pair (pair0 + blockIdx.y), columns
-// [blockIdx.x * tc, +tc). Scratch row pos holds k1 = bitrev(pos).
+// [blockIdx.x * tc, +tc), gathered straight from the signal.
 template <typename T, typename IO>
 __global__ void __launch_bounds__(kThreads)
 cols_forward(const IO* __restrict__ x, Cx<T>* __restrict__ scratch,
              const Cx<T>* __restrict__ tw4, const Cx<T>* __restrict__ w1,
              Geometry g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n1 = 1 << g.log_n1, n2 = 1 << g.log_n2;
+  const int n1 = 1 << g.sp.log_n1, n2 = 1 << g.sp.log_n2, tc = g.sp.tc;
   Cx<T>* tws = reinterpret_cast<Cx<T>*>(smem_raw);
   Cx<T>* s = tws + (n1 >> 1);
   const long long p = g.pair0 + blockIdx.y;
   const long long ch = p / g.pairs_per_ch;
   const long long k = p % g.pairs_per_ch;
-  const int c0 = blockIdx.x * g.tc;
+  const int c0 = blockIdx.x * tc;
   const IO* xc = x + ch * g.n_in;
   const long long s0 = 2 * k * g.hop - g.left;
   const long long s1 = s0 + g.hop;
 
   load_table(tws, w1, n1 >> 1);
-  for (int i = threadIdx.x; i < g.tc * n1; i += blockDim.x) {
-    const int w = i % g.tc, row = i / g.tc;
+  for (int i = threadIdx.x; i < tc * n1; i += blockDim.x) {
+    const int w = i % tc, row = i / tc;
     const long long n = (long long)row * n2 + c0 + w;
     const long long i0 = s0 + n, i1 = s1 + n;
     Cx<T> v;
     v.re = (i0 >= 0 && i0 < g.n_in) ? load_sample<T>(xc[i0]) : T(0);
     v.im = (i1 >= 0 && i1 < g.n_in) ? load_sample<T>(xc[i1]) : T(0);
-    s[row * g.tc + w] = v;
+    s[row * tc + w] = v;
   }
-  __syncthreads();
-  fft_dif(s, g.tc, g.log_n1, tws);
-
-  Cx<T>* out = scratch + (size_t)blockIdx.y * ((size_t)n1 * n2);
-  for (int i = threadIdx.x; i < g.tc * n1; i += blockDim.x) {
-    const int w = i % g.tc, pos = i / g.tc;
-    const size_t idx = (size_t)pos * n2 + c0 + w;
-    out[idx] = cmul(s[pos * g.tc + w], tw4[idx]);
-  }
-}
-
-// Pass 2: rows [blockIdx.x * tr, +tr) of one pair: FFT, times H, inverse.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rows_multiply(Cx<T>* __restrict__ scratch, const Cx<T>* __restrict__ H,
-              const Cx<T>* __restrict__ w2, Geometry g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n1 = 1 << g.log_n1, n2 = 1 << g.log_n2;
-  Cx<T>* tws = reinterpret_cast<Cx<T>*>(smem_raw);
-  Cx<T>* s = tws + (n2 >> 1);
-  const int r0 = blockIdx.x * g.tr;
-  Cx<T>* blk = scratch + (size_t)blockIdx.y * ((size_t)n1 * n2);
-
-  load_table(tws, w2, n2 >> 1);
-  for (int i = threadIdx.x; i < g.tr * n2; i += blockDim.x) {
-    const int r = i / n2, q = i % n2;  // row-contiguous global reads
-    s[q * g.tr + r] = blk[(size_t)(r0 + r) * n2 + q];
-  }
-  __syncthreads();
-  fft_dif(s, g.tr, g.log_n2, tws);
-  for (int i = threadIdx.x; i < g.tr * n2; i += blockDim.x) {
-    const int r = i / n2, q = i % n2;
-    s[q * g.tr + r] = cmul(s[q * g.tr + r], H[(size_t)(r0 + r) * n2 + q]);
-  }
-  __syncthreads();
-  ifft_dit(s, g.tr, g.log_n2, tws);
-  for (int i = threadIdx.x; i < g.tr * n2; i += blockDim.x) {
-    const int r = i / n2, q = i % n2;
-    blk[(size_t)(r0 + r) * n2 + q] = s[q * g.tr + r];
-  }
+  cols_forward_store(s, tws, scratch + (size_t)blockIdx.y * ((size_t)n1 * n2),
+                     tw4, g.sp, c0);
 }
 
 // Pass 3: inverse column FFTs, valid-position write-out, fused peak.
@@ -247,34 +129,28 @@ cols_inverse(const Cx<T>* __restrict__ scratch, IO* __restrict__ y,
              const Cx<T>* __restrict__ tw4, const Cx<T>* __restrict__ w1,
              Geometry g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n1 = 1 << g.log_n1, n2 = 1 << g.log_n2;
+  const int n1 = 1 << g.sp.log_n1, n2 = 1 << g.sp.log_n2, tc = g.sp.tc;
   Cx<T>* tws = reinterpret_cast<Cx<T>*>(smem_raw);
   Cx<T>* s = tws + (n1 >> 1);
   const long long p = g.pair0 + blockIdx.y;
   const long long ch = p / g.pairs_per_ch;
   const long long k = p % g.pairs_per_ch;
-  const int c0 = blockIdx.x * g.tc;
-  const Cx<T>* blk = scratch + (size_t)blockIdx.y * ((size_t)n1 * n2);
+  const int c0 = blockIdx.x * tc;
 
   load_table(tws, w1, n1 >> 1);
-  for (int i = threadIdx.x; i < g.tc * n1; i += blockDim.x) {
-    const int w = i % g.tc, pos = i / g.tc;
-    const size_t idx = (size_t)pos * n2 + c0 + w;
-    s[pos * g.tc + w] = cmulc(blk[idx], tw4[idx]);
-  }
-  __syncthreads();
-  ifft_dit(s, g.tc, g.log_n1, tws);
+  cols_inverse_load(s, tws, scratch + (size_t)blockIdx.y * ((size_t)n1 * n2),
+                    tw4, g.sp, c0);
 
   const T scale = T(1) / static_cast<T>((long long)n1 * n2);
   IO* yc = y + ch * g.out_len;
   const long long base0 = 2 * k * g.hop - g.m;  // out index of position n
   float pk = 0.0f;
-  for (int i = threadIdx.x; i < g.tc * n1; i += blockDim.x) {
-    const int w = i % g.tc, row = i / g.tc;
+  for (int i = threadIdx.x; i < tc * n1; i += blockDim.x) {
+    const int w = i % tc, row = i / tc;
     const long long n = (long long)row * n2 + c0 + w;
     if (n < g.m) continue;
     const long long o0 = base0 + n, o1 = o0 + g.hop;
-    const Cx<T> v = s[row * g.tc + w];
+    const Cx<T> v = s[row * tc + w];
     if (o0 < g.out_len) pk = fmaxf(pk, store_sample(yc + o0, v.re * scale));
     if (o1 < g.out_len) pk = fmaxf(pk, store_sample(yc + o1, v.im * scale));
   }
@@ -289,38 +165,20 @@ int run(const IO* x, IO* y, float* peak, const void* H, const void* tw4,
         const void* w1, const void* w2, void* scratch, int channels,
         long long n_in, long long out_len, long long left, int m, int log_n1,
         int log_n2, long long chunk_pairs, cudaStream_t stream) {
-  const long long b = 1LL << (log_n1 + log_n2);
   Geometry g;
+  g.sp = make_split(log_n1, log_n2);
   g.n_in = n_in;
   g.out_len = out_len;
   g.left = left;
-  g.hop = b - m;
+  g.hop = (1LL << (log_n1 + log_n2)) - m;
   g.m = m;
-  g.log_n1 = log_n1;
-  g.log_n2 = log_n2;
-  const int n1 = 1 << log_n1, n2 = 1 << log_n2;
-  g.tc = n2 < (kTileElems >> log_n1) ? n2 : (kTileElems >> log_n1);
-  g.tr = n1 < (kTileElems >> log_n2) ? n1 : (kTileElems >> log_n2);
   const long long nb = (out_len + g.hop - 1) / g.hop;
   g.pairs_per_ch = (nb + 1) / 2;
   const long long total = g.pairs_per_ch * channels;
 
-  const size_t sm_cols = ((size_t)(n1 >> 1) + (size_t)g.tc * n1) * sizeof(Cx<T>);
-  const size_t sm_rows = ((size_t)(n2 >> 1) + (size_t)g.tr * n2) * sizeof(Cx<T>);
-  cudaError_t err;
-  err = cudaFuncSetAttribute(cols_forward<T, IO>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm_cols);
+  cudaError_t err = allow_smem<T>(cols_forward<T, IO>, cols_inverse<T, IO>, g.sp);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(rows_multiply<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm_rows);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(cols_inverse<T, IO>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm_cols);
-  if (err != cudaSuccess) return err;
-
+  const size_t sm_cols = cols_smem<T>(g.sp), sm_rows = rows_smem<T>(g.sp);
   const Cx<T>* Hc = static_cast<const Cx<T>*>(H);
   const Cx<T>* tw4c = static_cast<const Cx<T>*>(tw4);
   const Cx<T>* w1c = static_cast<const Cx<T>*>(w1);
@@ -330,11 +188,12 @@ int run(const IO* x, IO* y, float* peak, const void* H, const void* tw4,
   for (long long p0 = 0; p0 < total; p0 += chunk_pairs) {
     const long long np = (total - p0) < chunk_pairs ? (total - p0) : chunk_pairs;
     g.pair0 = p0;
-    const dim3 grid_cols(n2 / g.tc, (unsigned)np);
-    const dim3 grid_rows(n1 / g.tr, (unsigned)np);
+    const dim3 grid_cols((1 << log_n2) / g.sp.tc, (unsigned)np);
+    const dim3 grid_rows((1 << log_n1) / g.sp.tr, (unsigned)np);
     cols_forward<T, IO><<<grid_cols, kThreads, sm_cols, stream>>>(
         x, sc, tw4c, w1c, g);
-    rows_multiply<T><<<grid_rows, kThreads, sm_rows, stream>>>(sc, Hc, w2c, g);
+    rows_multiply<T><<<grid_rows, kThreads, sm_rows, stream>>>(sc, Hc, w2c,
+                                                               g.sp);
     cols_inverse<T, IO><<<grid_cols, kThreads, sm_cols, stream>>>(
         sc, y, pk, tw4c, w1c, g);
     err = cudaGetLastError();

@@ -37,13 +37,15 @@ class FIRFilter:
         return self._design(fs)
 
     def plan(self, fs: float, precision: str = osv.HIGH,
-             block_size: int = 0, device="cuda") -> osv.OverlapSavePlan:
+             block_size: int = 0, device="cuda",
+             engine: str = "auto") -> osv.OverlapSavePlan:
         """The port's overlap-save plan on ``device``, cached per key."""
         dev = resolve_device(device)
-        key = (fs, precision, block_size, dev)
+        key = (fs, precision, block_size, dev, engine)
         cache = object.__getattribute__(self, "__dict__").setdefault("_plans", {})
         if key not in cache:
-            cache[key] = osv.make_plan(self.taps(fs), precision, block_size, dev)
+            cache[key] = osv.make_plan(self.taps(fs), precision, block_size,
+                                       dev, engine)
         return cache[key]
 
 

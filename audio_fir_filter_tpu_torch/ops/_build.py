@@ -1,10 +1,12 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles ``csrc/segment_filter.cu`` (plain C entry points, no
-PyTorch headers: seconds, not minutes) for ``sm_90a`` into
-``build/lowcut_torch/`` beside the package, a directory git ignores. The
-library is rebuilt when the source is newer than it. Nothing here runs at
-import: the CPU tests import every module on machines with no ``nvcc``.
+Each kernel source ``csrc/<name>.cu`` (plain C entry points, no PyTorch
+headers: seconds, not minutes) is compiled by its own ``nvcc`` for
+``sm_90a`` into ``build/lowcut_torch/lib<name>.so`` beside the package, a
+directory git ignores. A library is rebuilt when any file under ``csrc/``
+(headers included) is newer than it, so a stale library never lacks an
+entry point. Nothing here runs at import: the CPU tests import every module
+on machines with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -15,17 +17,36 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "segment_filter.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lowcut_torch"
-LIBRARY = BUILD_DIR / "libsegment_filter.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-ENTRY_POINTS = ("lowcut_segment_filter_f32", "lowcut_segment_filter_f64",
-                "lowcut_segment_filter_i16")
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# Per kernel source: its entry points and their shared argtypes.
+FAMILIES = {
+    "segment_filter": (
+        ("lowcut_segment_filter_f32", "lowcut_segment_filter_f64",
+         "lowcut_segment_filter_i16"),
+        # x, y, peak, H, tw4, w1, w2, scratch, channels, n_in, out_len,
+        # left, m, log_n1, log_n2, chunk_pairs, stream
+        [_p, _p, _p, _p, _p, _p, _p, _p, _i, _ll, _ll, _ll, _i, _i, _i, _ll, _p],
+    ),
+    "conv_blocks": (
+        ("lowcut_conv_blocks_f32", "lowcut_conv_blocks_f64"),
+        # blocks, out, H, tw4, w1, w2, scratch, nb, log_n1, log_n2,
+        # chunk_pairs, stream
+        [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _ll, _p],
+    ),
+}
+
+
+def _sources_mtime() -> float:
+    return max(p.stat().st_mtime for p in CSRC.iterdir() if p.is_file())
 
 
 def _nvcc() -> str:
@@ -40,35 +61,43 @@ def _nvcc() -> str:
                        "put the CUDA toolkit's bin/ on PATH or set CUDA_HOME")
 
 
-def build(force: bool = False) -> Path:
-    """Compile the kernel library if missing or older than its source."""
-    if (not force and LIBRARY.is_file()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return LIBRARY
+def build(name: str, force: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` if its library is missing or older than
+    any file under ``csrc/``."""
+    if name not in FAMILIES:
+        raise ValueError(f"unknown kernel source {name!r}")
+    lib = BUILD_DIR / f"lib{name}.so"
+    if not force and lib.is_file() and lib.stat().st_mtime >= _sources_mtime():
+        return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
                            f"{r.stdout}\n{r.stderr}")
     # ptxas -v resource report (registers, shared memory, spills).
-    (BUILD_DIR / "ptxas.log").write_text(r.stdout + r.stderr)
-    os.replace(tmp, LIBRARY)  # atomic for concurrent first uses
-    return LIBRARY
+    (BUILD_DIR / f"{name}.ptxas.log").write_text(r.stdout + r.stderr)
+    os.replace(tmp, lib)  # atomic for concurrent first uses
+    return lib
+
+
+def build_all(force: bool = False) -> list[Path]:
+    """Build every kernel source, one ``nvcc`` each, all at once."""
+    with ThreadPoolExecutor(len(FAMILIES)) as pool:
+        return list(pool.map(lambda n: build(n, force), FAMILIES))
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The built kernel library with every entry point's argtypes set."""
-    lib = ctypes.CDLL(str(build()))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ENTRY_POINTS:
-        fn = getattr(lib, name)
-        # x, y, peak, H, tw4, w1, w2, scratch, channels, n_in, out_len,
-        # left, m, log_n1, log_n2, chunk_pairs, stream
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, ll, ll, ll, i, i, i, ll, p]
+def library(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` with its entry points'
+    argtypes set."""
+    lib = ctypes.CDLL(str(build(name)))
+    entries, argtypes = FAMILIES[name]
+    for entry in entries:
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib

@@ -11,10 +11,22 @@ of the block with the reversed kernel is alias-free at positions [M, B),
 which are exactly out[j*L : (j+1)*L].
 
 Two precisions: ``fast`` computes in float32 (within 1 LSB @ 16-bit of the
-oracle) and ``high`` in native float64 (within 1 LSB @ 24-bit). Every
-filter runs through :func:`.segment_filter.segment_filter`: the CUDA kernel
-for tensors on the card, the plain PyTorch version
-(:func:`_same_filter_reference`) for tensors on the CPU.
+oracle) and ``high`` in native float64 (within 1 LSB @ 24-bit).
+
+Two engines, chosen by the plan (:func:`resolve_engine`):
+
+- ``pallas`` (what ``auto`` resolves to): the whole-segment kernel,
+  :func:`.segment_filter.segment_filter`, which frames the windows itself
+  and writes only valid hops;
+- the generic block path, for ``fourstep``, ``pease`` and ``stockham``:
+  overlapped blocks materialized on the device (``F.pad`` + ``unfold``),
+  convolved ``conv_chunk`` blocks at a time by
+  :func:`.conv_blocks.conv_real_blocks`, positions [M, B) kept. The three
+  names are XLA FFT variants of one block convolution in the JAX package;
+  the port has one block kernel for all three.
+
+Each kernel runs for tensors on the card; its plain PyTorch version runs
+for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -25,12 +37,30 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from . import conv_blocks as cb
 from . import segment_filter as sf
 
 FAST = sf.FAST
 HIGH = sf.HIGH
 
 _SPECTRUM_DTYPE = {FAST: torch.complex64, HIGH: torch.complex128}
+
+PALLAS = "pallas"
+BLOCK_ENGINES = ("fourstep", "pease", "stockham")
+# Blocks per block-kernel call on the block path (the JAX package's
+# default conv_chunk).
+CONV_CHUNK = 16
+
+
+def resolve_engine(engine: str) -> str:
+    """``auto`` -> ``pallas`` (the segment kernel); ``pallas`` and the block
+    engines stay as named. Raises ValueError for any other name."""
+    if engine == "auto":
+        return PALLAS
+    if engine != PALLAS and engine not in BLOCK_ENGINES:
+        raise ValueError(f"unknown engine {engine!r} (use 'auto', 'pallas', "
+                         f"{', '.join(repr(e) for e in BLOCK_ENGINES)})")
+    return engine
 
 
 def _next_pow2(n: int) -> int:
@@ -77,6 +107,10 @@ class OverlapSavePlan:
     precision: str
     device: torch.device
     H: torch.Tensor = dataclasses.field(compare=False, repr=False)
+    # Resolved engine: "pallas" (segment kernel) or a block engine.
+    engine: str = PALLAS
+    # Blocks per block-kernel call on the block path.
+    conv_chunk: int = CONV_CHUNK
 
     @property
     def m(self) -> int:
@@ -91,37 +125,46 @@ class OverlapSavePlan:
         return self.block_size - self.m
 
 
-def _plan(taps: np.ndarray, precision: str, b: int, device) -> OverlapSavePlan:
+def _plan(taps: np.ndarray, precision: str, b: int, device, engine: str,
+          conv_chunk: int) -> OverlapSavePlan:
     dtype = _SPECTRUM_DTYPE.get(precision)
     if dtype is None:
         raise ValueError(f"unknown precision {precision!r} (use 'fast' or 'high')")
+    engine = resolve_engine(engine)
+    if conv_chunk < 2 or conv_chunk % 2:
+        raise ValueError(f"conv_chunk must be even and >= 2, got {conv_chunk}")
     dev = resolve_device(device)
+    # Both kernels take the same shapes: odd taps, B a power of two > M
+    # with each four-step side within the shared-memory tile.
     if not sf.qualifies(len(taps), b):
-        raise ValueError(f"no segment filter for {len(taps)} taps at B={b}")
+        raise ValueError(f"no kernel for {len(taps)} taps at B={b}")
     H = torch.from_numpy(sf.spectrum_layout(taps, b)).to(device=dev, dtype=dtype)
-    return OverlapSavePlan(len(taps), b, precision, dev, H)
+    return OverlapSavePlan(len(taps), b, precision, dev, H, engine, conv_chunk)
 
 
 def make_plan(taps: np.ndarray, precision: str = HIGH, block_size: int = 0,
-              device="cuda") -> OverlapSavePlan:
+              device="cuda", engine: str = "auto") -> OverlapSavePlan:
     """Plan for odd-length float64 ``taps`` on ``device`` (raises if a CUDA
-    device is asked for and there is no card)."""
+    device is asked for and there is no card) with ``engine`` resolved by
+    :func:`resolve_engine`."""
     taps = np.asarray(taps, dtype=np.float64)
     if len(taps) % 2 != 1:
         raise ValueError("taps must have odd length (type-I linear phase)")
     return _plan(taps, precision, choose_block_size(len(taps), block_size),
-                 device)
+                 device, engine, CONV_CHUNK)
 
 
 def plan_from_jax(jax_plan, taps: np.ndarray, device) -> OverlapSavePlan:
     """The port's plan for the configuration of a JAX package plan: the same
-    float64 taps with its ``num_taps``, ``block_size`` and ``precision``.
-    Used to run both packages on one configuration."""
+    float64 taps with its ``num_taps``, ``block_size``, ``precision``,
+    ``engine`` and ``conv_chunk``. Used to run both packages on one
+    configuration."""
     taps = np.asarray(taps, dtype=np.float64)
     if len(taps) != jax_plan.num_taps:
         raise ValueError(f"{len(taps)} taps for a JAX plan of "
                          f"{jax_plan.num_taps}")
-    return _plan(taps, jax_plan.precision, jax_plan.block_size, device)
+    return _plan(taps, jax_plan.precision, jax_plan.block_size, device,
+                 jax_plan.engine, jax_plan.conv_chunk)
 
 
 # ------------------------------------------------------------------ filters
@@ -142,11 +185,39 @@ def _same_filter_reference(x: torch.Tensor, plan: OverlapSavePlan) -> torch.Tens
     return sf.reference(x, plan, plan.mo2, x.shape[1])[0]
 
 
+def _block_filter_peak(x: torch.Tensor, plan: OverlapSavePlan, left: int,
+                       out_len: int):
+    """The generic block path: y[i] = sum_k h[k] x[i - left + k] for i in
+    [0, out_len) through the block kernel, ``conv_chunk`` blocks per call,
+    and the peak over those ``out_len`` samples only."""
+    c = x.shape[0]
+    b, m, hop = plan.block_size, plan.m, plan.hop
+    nb = -(-out_len // hop)
+    nb += nb & 1  # even per channel: pairs never straddle a channel
+    if c == 0 or nb == 0:
+        y = x.new_empty((c, out_len))
+        return y, x.new_zeros(())
+    # Channels fold into the block axis (channel-major): one contiguous copy.
+    blocks = sf.windows(x, b, hop, left, nb).contiguous().view(c * nb, b)
+    step = plan.conv_chunk
+    yb = torch.cat([cb.conv_real_blocks(blocks[i : i + step], plan)[:, m:]
+                    for i in range(0, blocks.shape[0], step)])
+    y = yb.view(c, nb * hop)[:, :out_len].contiguous()
+    return y, y.abs().amax()
+
+
+def _filter_peak(x: torch.Tensor, plan: OverlapSavePlan, left: int,
+                 out_len: int):
+    if plan.engine == PALLAS:
+        return sf.segment_filter(x, plan, left, out_len)
+    return _block_filter_peak(x, plan, left, out_len)
+
+
 def same_filter_peak(x, plan: OverlapSavePlan):
     """Filter [N] or [C, N] with 'same' semantics; returns (y float32 on the
-    plan's device, peak max|y| as a 0-d tensor, taken inside the kernel)."""
+    plan's device, peak max|y| as a 0-d tensor)."""
     x, squeeze = _as_input(x, plan)
-    y, peak = sf.segment_filter(x, plan, plan.mo2, x.shape[1])
+    y, peak = _filter_peak(x, plan, plan.mo2, x.shape[1])
     return (y[0] if squeeze else y), peak
 
 
@@ -157,7 +228,7 @@ def extended_filter_peak(xe, plan: OverlapSavePlan, out_len: int):
     except at the true signal edges. The peak covers only the ``out_len``
     returned samples, so a short last segment needs no host re-scan."""
     xe, squeeze = _as_input(xe, plan)
-    y, peak = sf.segment_filter(xe, plan, 0, out_len)
+    y, peak = _filter_peak(xe, plan, 0, out_len)
     return (y[0] if squeeze else y), peak
 
 

@@ -137,6 +137,14 @@ def kernel_tables(b: int, dtype: torch.dtype, device: torch.device):
                  for t in (tw4, roots(n1), roots(n2)))
 
 
+def windows(x: torch.Tensor, b: int, hop: int, left: int, nb: int) -> torch.Tensor:
+    """[C, nb, B] view of the overlapped windows of [C, n_in]: window j of
+    channel c is xp[c, j*hop : j*hop + B] of xp = [left zeros | x | zeros]."""
+    need = (nb - 1) * hop + b
+    xp = F.pad(x, (left, max(0, need - left - x.shape[1])))[:, :need]
+    return xp.unfold(1, b, hop)
+
+
 def _check(x: torch.Tensor, plan, left: int, out_len: int, i16_io: bool):
     if not qualifies(plan.num_taps, plan.block_size):
         raise ValueError(
@@ -195,7 +203,8 @@ def _launch(x, plan, left, out_len, i16_io):
                        _SCRATCH_BYTES // (b * H.element_size())))
     scratch = torch.empty((chunk, b), dtype=H.dtype, device=dev)
     l1, l2 = split(b)
-    fn = getattr(_build.library(), f"lowcut_segment_filter_{mode}")
+    fn = getattr(_build.library("segment_filter"),
+                 f"lowcut_segment_filter_{mode}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), peak.data_ptr(), H.data_ptr(),
@@ -217,7 +226,7 @@ def reference(x: torch.Tensor, plan, left: int, out_len: int,
     otherwise (and for 16-bit I/O). Runs on any device."""
     b, m = plan.block_size, plan.m
     hop = b - m
-    c, n_in = x.shape
+    c = x.shape[0]
     high = plan.precision == HIGH and not i16_io
     rdt = torch.float64 if high else torch.float32
     xf = x.to(rdt) / 32768.0 if i16_io else x.to(rdt)
@@ -225,10 +234,7 @@ def reference(x: torch.Tensor, plan, left: int, out_len: int,
     if nb == 0 or c == 0:
         y = torch.empty((c, out_len), dtype=x.dtype, device=x.device)
         return y, torch.zeros((), dtype=torch.float32, device=x.device)
-    need = (nb - 1) * hop + b
-    xp = F.pad(xf, (left, max(0, need - left - n_in)))[:, :need]
-    blocks = xp.unfold(1, b, hop)                      # [C, nb, B] view
-    spec = torch.fft.rfft(blocks) * natural_spectrum(plan.H)
+    spec = torch.fft.rfft(windows(xf, b, hop, left, nb)) * natural_spectrum(plan.H)
     yb = torch.fft.irfft(spec, n=b)[..., m:]           # [C, nb, hop]
     y = yb.reshape(c, nb * hop)[:, :out_len].to(torch.float32)
     if i16_io:

@@ -1,0 +1,85 @@
+"""Resumable batch manifest.
+
+Counterpart of ``audio_fir_filter_tpu/pipeline/manifest.py``, with the
+same file name and format: outputs are written atomically (temp + rename),
+and each finished input is recorded in ``.lowcut_manifest.json`` in the
+destination directory, so a rerun with ``--resume`` skips completed files.
+The manifest is the checkpoint; there is no other state.
+
+Its fingerprint is the port's own (:func:`options_fingerprint`): a manifest
+written by the JAX package, or by the port with other output-relevant
+settings, never makes the port skip a file.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+from ..ops.overlap_save import resolve_engine
+
+MANIFEST_NAME = ".lowcut_manifest.json"
+# First entry of every fingerprint of this package.
+FINGERPRINT_TAG = "audio_fir_filter_tpu_torch"
+
+
+class BatchManifest:
+    """Thread-safe: ``mark_done`` is called from the batch pipeline's
+    writer threads (pipeline/batch.py)."""
+
+    def __init__(self, dest_dir: Path, options_fingerprint: str):
+        self.path = Path(dest_dir) / MANIFEST_NAME
+        self.fingerprint = options_fingerprint
+        self.done: dict[str, bool] = {}
+        self._lock = threading.Lock()
+        if self.path.exists():
+            try:
+                data = json.loads(self.path.read_text())
+                if data.get("options") == options_fingerprint:
+                    self.done = dict(data.get("done", {}))
+            except (json.JSONDecodeError, OSError):
+                pass  # corrupt manifest: start fresh
+
+    def is_done(self, input_path) -> bool:
+        with self._lock:
+            return self.done.get(str(input_path), False)
+
+    def mark_done(self, input_path) -> None:
+        with self._lock:
+            self.done[str(input_path)] = True
+            self._flush()
+
+    def _flush(self) -> None:
+        # Unique temp name + atomic replace (lock held by callers).
+        fd, tmp = tempfile.mkstemp(dir=str(self.path.parent),
+                                   prefix=".lowcut_manifest_")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump({"options": self.fingerprint, "done": self.done},
+                          f, indent=1)
+            os.replace(tmp, self.path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+
+
+def options_fingerprint(opts, device) -> str:
+    """Stable fingerprint of everything that changes the output's bits:
+    filter type, frequencies, slope, normalize, precision, block size, the
+    resolved engine (``auto`` and ``pallas`` are one kernel), and the
+    device type — the CPU's plain version and the card's kernels round
+    differently. A resume that changes any of them must not mix outputs in
+    one directory. The port has no environment knobs, so none appear."""
+    return json.dumps(
+        [FINGERPRINT_TAG, opts.filter_type, opts.freq, opts.freq_hi,
+         opts.slope, opts.normalize, opts.precision, opts.block_size,
+         resolve_engine(opts.engine), torch.device(device).type]
+    )

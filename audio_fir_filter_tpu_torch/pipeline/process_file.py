@@ -4,7 +4,8 @@
 Counterpart of ``audio_fir_filter_tpu/pipeline/process_file.py``, with the
 same stage order, status lines and metrics keys:
 
-- 16-bit PCM sources under ``fast`` precision without ``-n`` take the
+- 16-bit PCM sources under ``fast`` precision without ``-n``, on the
+  segment kernel's engine (``pallas``, what ``auto`` resolves to), take the
   16-bit-native route (int16 in and out of the kernel); if the output
   reaches the int16 rails the file is refiltered in float32, so the
   normalize-on-clip rule sees the unclipped peak.
@@ -33,44 +34,34 @@ from .stream import filter_array_streamed, filter_array_streamed_i16
 def _use_i16_route(opts, precision: str, plan, data) -> bool:
     """The 16-bit-native route applies when it is exact: ``fast``
     precision, a 16-bit PCM source (its float32 decode is an exact int16
-    round trip), no explicit normalize, and a shape the kernel takes."""
+    round trip), no explicit normalize, the segment kernel's engine and a
+    shape it takes."""
     return (precision == "fast"
             and not opts.normalize
             and data.fmt.encoding == Encoding.PCM_16
+            and plan.engine == "pallas"
             and sf.qualifies(plan.num_taps, plan.block_size))
 
 
-def process_file(input_path, output_path, opts: FilterOptions,
-                 show_progress: bool = True, device="cuda") -> dict:
-    """Filter one audio file on ``device``. Returns per-stage timing
-    metrics (seconds) plus frames, channels, sample_rate, peak and
-    precision."""
-    t = {}
-
-    def show_status(msg: str) -> None:
-        if opts.verbose:
-            print(msg)
-
-    show_status("Opening input file.")
-    t0 = time.perf_counter()
-    data = audio.read_audio(input_path)
-    t["read"] = time.perf_counter() - t0
-
-    name = getattr(input_path, "name", None) or str(input_path).rsplit("/", 1)[-1]
-    print(f"Processing file: {name}")
-
-    fs = data.fmt.sample_rate
-    show_status("Creating sinc kernel for this file's sample rate.")
-    t0 = time.perf_counter()
-    model = make_model(opts.filter_type, opts.freq, opts.slope, opts.freq_hi)
+def design_plan(model, data, opts: FilterOptions, device, show_status):
+    """(plan, precision) for one file: ``auto`` precision resolved from the
+    file's encoding, the plan from the model's cache."""
     precision = resolve_precision(opts.precision, data.fmt.encoding)
     if precision != opts.precision:
         show_status(f"Precision 'auto' -> '{precision}' for "
                     f"{data.fmt.encoding.bits}-bit output.")
-    plan = model.plan(fs, precision=precision, block_size=opts.block_size,
-                      device=device)
-    t["design"] = time.perf_counter() - t0
+    plan = model.plan(data.fmt.sample_rate, precision=precision,
+                      block_size=opts.block_size, device=device,
+                      engine=opts.engine)
+    return plan, precision
 
+
+def filter_and_normalize(data, plan, precision: str, opts: FilterOptions,
+                         t: dict, show_status, show_progress: bool):
+    """Filter one decoded file on the plan's device and apply the normalize
+    rule; fills ``t["filter"]`` and ``t["normalize"]`` and returns
+    ``(samples, peak)``. Shared by :func:`process_file` and the batch, so
+    a file's output is the same either way."""
     show_status("Filtering.")
     total = data.num_frames * data.num_channels
     bar = ProgressBar(total, enabled=show_progress and sys.stdout.isatty())
@@ -98,6 +89,36 @@ def process_file(input_path, output_path, opts: FilterOptions,
         show_status("Doing audio normalize.")
         filtered = _scale_common(filtered, max_mag)
     t["normalize"] = time.perf_counter() - t0
+    return filtered, max_mag
+
+
+def process_file(input_path, output_path, opts: FilterOptions,
+                 show_progress: bool = True, device="cuda") -> dict:
+    """Filter one audio file on ``device``. Returns per-stage timing
+    metrics (seconds) plus frames, channels, sample_rate, peak and
+    precision."""
+    t = {}
+
+    def show_status(msg: str) -> None:
+        if opts.verbose:
+            print(msg)
+
+    show_status("Opening input file.")
+    t0 = time.perf_counter()
+    data = audio.read_audio(input_path)
+    t["read"] = time.perf_counter() - t0
+
+    name = getattr(input_path, "name", None) or str(input_path).rsplit("/", 1)[-1]
+    print(f"Processing file: {name}")
+
+    show_status("Creating sinc kernel for this file's sample rate.")
+    t0 = time.perf_counter()
+    model = make_model(opts.filter_type, opts.freq, opts.slope, opts.freq_hi)
+    plan, precision = design_plan(model, data, opts, device, show_status)
+    t["design"] = time.perf_counter() - t0
+
+    filtered, max_mag = filter_and_normalize(data, plan, precision, opts, t,
+                                             show_status, show_progress)
 
     show_status("Writing output file.")
     t0 = time.perf_counter()
@@ -107,7 +128,7 @@ def process_file(input_path, output_path, opts: FilterOptions,
     show_status("")
     t["frames"] = data.num_frames
     t["channels"] = data.num_channels
-    t["sample_rate"] = fs
+    t["sample_rate"] = data.fmt.sample_rate
     t["peak"] = max_mag
     t["precision"] = precision
     return t

@@ -1,11 +1,11 @@
-"""Host <-> device streaming of long signals through the segment filter.
+"""Host <-> device streaming of long signals through the plan's kernel.
 
 Counterpart of ``audio_fir_filter_tpu/pipeline/stream.py`` (one device).
 The time axis is cut into segments; each segment is filtered with
 kernel-length halos taken from its neighbours in host memory, so segment
 seams are exact and only the true signal edges are zero-padded. The output
-peak comes back from the kernel, per segment, over that segment's valid
-samples only.
+peak comes back with each segment (from the segment kernel, or reduced on
+the device on the block path), over that segment's valid samples only.
 
 Host <-> device copies are synchronous: each segment is copied up,
 filtered and copied back before the next. Overlapping them (pinned buffers,
@@ -28,9 +28,14 @@ def default_segment_len(plan: osv.OverlapSavePlan, target: int = 1 << 24,
     stays fixed. 2^24 frames bounds one segment's device memory (float32
     input and output, ~0.25 GiB in stereo, plus the kernel's scratch of at
     most 0.25 GiB) and makes a 10-minute 96 kHz file span several segments.
-    An even hop count fills every complex pair of the kernel."""
+    An even hop count fills every complex pair of the kernel.
+
+    The block path materializes one B-point block per hop, B / hop times
+    the segment, and returns as many; there the hop count is ``target / B``
+    so its block matrix, not the segment, stays within the budget."""
     per_ch = max(1 << 20, 2 * target // max(2, channels))
-    k = max(2, per_ch // plan.hop)
+    per_block = plan.hop if plan.engine == osv.PALLAS else plan.block_size
+    k = max(2, per_ch // per_block)
     return (k + (k & 1)) * plan.hop
 
 
@@ -109,13 +114,15 @@ def filter_array_streamed_i16(
     code| and ``saturated`` is True when an output reached the int16 rails
     (quantization may have clipped; the caller redoes the file in float32
     to honour normalize-on-clip). Raises ValueError for a plan the kernel's
-    16-bit mode does not take (it needs a 'fast' plan of a qualifying
-    shape)."""
-    if not sf.qualifies(plan.num_taps, plan.block_size) or plan.precision != osv.FAST:
+    16-bit mode does not take (it needs a 'fast' plan of the segment
+    kernel's engine, ``pallas``, and a qualifying shape)."""
+    if (plan.engine != osv.PALLAS or plan.precision != osv.FAST
+            or not sf.qualifies(plan.num_taps, plan.block_size)):
         raise ValueError(
-            "16-bit-native filtering needs a 'fast' plan that the segment "
-            f"filter takes; got precision={plan.precision!r}, "
-            f"num_taps={plan.num_taps}, B={plan.block_size}")
+            "16-bit-native filtering needs a 'fast' plan of the 'pallas' "
+            f"engine that the segment filter takes; got engine={plan.engine!r}, "
+            f"precision={plan.precision!r}, num_taps={plan.num_taps}, "
+            f"B={plan.block_size}")
     if x16.ndim == 1:
         y, p, sat = filter_array_streamed_i16(x16[None, :], plan,
                                               segment_len, progress_cb)

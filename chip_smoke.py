@@ -8,20 +8,38 @@ result line):
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; a CUDA card is required;
-2. build: nvcc builds the segment-filter kernel from the checkout;
-3. kernel vs its plain PyTorch version on the card at the main path's
-   shapes (2 channels, 30 s of audio, B = 2^18): high (M = 38,400 at
+2. build: one nvcc per kernel source (segment filter, block convolution),
+   all started together, from the checkout;
+3. segment kernel vs its plain PyTorch version on the card at the main
+   path's shapes (2 channels, 30 s of audio, B = 2^18): high (M = 38,400 at
    96 kHz), fast (M = 38,400) and i16 (M = 17,640 at 44.1 kHz) — error,
    peak, launch count and median CUDA-event times;
 4. a float64 direct-convolution oracle on excerpts (head, a block seam,
    tail) of the phase-3 kernel outputs; then kernel vs plain version at
    small edge shapes (B 256-2048, 1-3 channels, halo-extended input);
-5. the main path through the CLI entry point, in-process: (a) a 10-minute
+5. block-convolution kernel vs its plain version at the block path's shape
+   for the same 2 x 30 s at 96 kHz (M = 38,400, B = 2^18: blocks
+   [28, 2^18]), f64 and f32, over full blocks — error, launch count and
+   median CUDA-event times; then small edge shapes (B 256-2048, nb 2-6)
+   and the whole block path at T = 201, B = 256;
+6. the main path through the CLI entry point, in-process: (a) a 10-minute
    96 kHz stereo 24-bit WAV with a metadata chunk (auto -> high, several
    segments), (b) a 5-minute 44.1 kHz stereo 16-bit WAV (the 16-bit-native
    route), (c) a loud 16-bit WAV that saturates, falls back to float32 and
    auto-normalizes. Launch counters are zeroed before (a) and read after
-   (c); every mode must have launched.
+   (c); every segment-kernel mode must have launched;
+7. the block path through the CLI, ``--engine fourstep``, on files (a)
+   and (b): oracle excerpts, metadata, no 16-bit route; counters zeroed
+   before and read after, both block-kernel modes must have launched and
+   the segment kernel never;
+8. the batch scenario through the CLI with ``--resume`` into a new
+   directory: (a), (b), (c) and a 1-minute 48 kHz 24-bit AIFF (d). Each
+   output equals its single-file output sample for sample and the launch
+   counts equal the single-file runs' sum; a ``--resume`` rerun launches
+   nothing and leaves the outputs' bytes as they were; a batch with a
+   missing file in the middle exits 1 with exactly the files before it
+   written and listed in the manifest, and its ``--resume`` rerun, with
+   the file present, filters only the rest (the launch counts show it).
 
 Output: the phase reports, then a JSON line of per-kernel results, then
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -30,8 +48,10 @@ the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -45,8 +65,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 SEED = 20261016
-KERNEL_SOURCE = "audio_fir_filter_tpu_torch/csrc/segment_filter.cu"
-REPLACES = "audio_fir_filter_tpu/ops/pallas_fft.py:753"
+SEGMENT_SOURCE = "audio_fir_filter_tpu_torch/csrc/segment_filter.cu"
+SEGMENT_REPLACES = "audio_fir_filter_tpu/ops/pallas_fft.py:753"
+CONV_SOURCE = "audio_fir_filter_tpu_torch/csrc/conv_blocks.cu"
+CONV_REPLACES = "audio_fir_filter_tpu/ops/pallas_fft.py:986"
 EXCERPT = 4096
 
 
@@ -108,13 +130,34 @@ def phase_build() -> None:
     from audio_fir_filter_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build(force=True)
-    _build.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    log = (_build.BUILD_DIR / "ptxas.log").read_text()
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    _build.build_all(force=True)
+    for name in _build.FAMILIES:
+        _build.library(name)
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(_build.FAMILIES)} "
+          f"sources in parallel (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for name in _build.FAMILIES:
+        log = (_build.BUILD_DIR / f"{name}.ptxas.log").read_text()
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
+
+
+def _zero_counts() -> None:
+    from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+
+    for counts in (sf.launches, cb.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def _counts() -> dict:
+    """Every kernel's launch count, by the kernels line's row name."""
+    from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+
+    return {**{f"segment_filter_{k}": v for k, v in sf.launches.items()},
+            **{f"conv_blocks_{k}": v for k, v in cb.launches.items()}}
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -253,13 +296,112 @@ def phase_edge_shapes() -> None:
           + ", ".join(f"{k} {v:.4f} LSB" for k, v in worst.items()))
 
 
-def _run_cli(args: list[str]) -> dict:
+CONV_MODES = (
+    # mode, precision, gate bits
+    ("f64", "high", 24),
+    ("f32", "fast", 16),
+)
+
+
+def phase_conv_kernels() -> dict:
+    """The block kernel on the block path's own input for 2 x 30 s at
+    96 kHz: the overlapped blocks that ``--engine fourstep`` builds, all B
+    positions compared (the aliased head [0, M) included)."""
+    from audio_fir_filter_tpu_torch.models import LowCut
+    from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy(_signal(96000.0, 30.0, rng)).cuda()
+    n = x.shape[1]
+    results = {}
+    for mode, precision, bits in CONV_MODES:
+        plan = LowCut().plan(96000.0, precision=precision, device="cuda",
+                             engine="fourstep")
+        nb = -(-n // plan.hop)
+        nb += nb & 1
+        blocks = sf.windows(x, plan.block_size, plan.hop, plan.mo2,
+                            nb).contiguous().view(-1, plan.block_size)
+        check(tuple(blocks.shape) == (28, 1 << 18),
+              f"conv {mode}: blocks {tuple(blocks.shape)} != (28, 2^18)")
+        before = cb.launches[mode]
+        yk = cb.conv_real_blocks(blocks, plan)
+        torch.cuda.synchronize()
+        check(cb.launches[mode] == before + 1, f"conv {mode}: launch not counted")
+        yp = cb.reference(blocks, plan)
+        yk_h = yk.cpu().numpy().astype(np.float64)
+        yp_h = yp.cpu().numpy().astype(np.float64)
+        check(bool(np.isfinite(yk_h).all()), f"conv {mode}: non-finite output")
+        err_abs = float(np.max(np.abs(yk_h - yp_h)))
+        err_lsb = scaled_lsb_error(yk_h, yp_h, bits)
+        check(err_lsb <= 1.0, f"conv {mode}: kernel vs plain {err_lsb} LSB@{bits} > 1")
+        head = scaled_lsb_error(yk_h[:, : plan.m], yp_h[:, : plan.m], bits)
+
+        ms = _time_ms(lambda: cb.conv_real_blocks(blocks, plan))
+        plain_ms = _time_ms(lambda: cb.reference(blocks, plan))
+        ms2 = _time_ms(lambda: cb.conv_real_blocks(blocks, plan))
+        print(f"conv kernel {mode}: M={plan.m} B={plan.block_size} blocks "
+              f"{tuple(blocks.shape)}: kernel vs plain {err_lsb:.4f} LSB@{bits} "
+              f"over full blocks (head [0, M) {head:.4f}; max abs "
+              f"{err_abs:.3e}); kernel {ms:.3f}/{ms2:.3f} ms, plain (cuFFT) "
+              f"{plain_ms:.3f} ms")
+        results[mode] = {"max_abs_err": err_abs, "ms": min(ms, ms2),
+                         "plain_ms": plain_ms}
+    return results
+
+
+def phase_conv_edge_shapes() -> None:
+    """Block kernel vs plain version at small shapes (B 256-2048, nb 2-6,
+    square and non-square splits), and the whole block path at T = 201,
+    B = 256 (hop 56) against the segment filter's plain version."""
+    from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
+    from audio_fir_filter_tpu_torch.ops import kernel_design as kd
+    from audio_fir_filter_tpu_torch.ops import overlap_save as osv
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+
+    rng = np.random.default_rng(SEED + 4)
+    taps = kd.highpass_taps(0.05, 200)              # T = 201
+    worst = {}
+    for mode, precision, bits in CONV_MODES:
+        for b in (256, 512, 1024, 2048):
+            plan = osv.make_plan(taps, precision, b, "cuda", engine="fourstep")
+            for nb in (2, 4, 6):
+                x = torch.from_numpy(
+                    rng.uniform(-1, 1, (nb, b)).astype(np.float32)).cuda()
+                a = cb.conv_real_blocks(x, plan).cpu().numpy().astype(np.float64)
+                r = cb.reference(x, plan).cpu().numpy().astype(np.float64)
+                err = scaled_lsb_error(a, r, bits)
+                check(err <= 1.0, f"conv {mode} B={b} nb={nb}: {err} LSB@{bits}")
+                worst[mode] = max(worst.get(mode, 0.0), err)
+        plan = osv.make_plan(taps, precision, 256, "cuda", engine="fourstep")
+        x = torch.from_numpy(rng.uniform(-1, 1, (2, 3001)).astype(np.float32)).cuda()
+        y, pk = osv.same_filter_peak(x, plan)
+        r, _ = sf.reference(x, plan, plan.mo2, x.shape[1])
+        a = y.cpu().numpy().astype(np.float64)
+        err = scaled_lsb_error(a, r.cpu().numpy().astype(np.float64), bits)
+        check(err <= 1.0, f"block path {mode} T=201 B=256: {err} LSB@{bits}")
+        top = float(np.abs(a).max())
+        check(float(pk) == top, f"block path {mode}: peak {float(pk)} != {top}")
+        worst[f"{mode} T=201/B=256 path"] = err
+    torch.cuda.synchronize()
+    print("conv edge shapes (B 256-2048, nb 2-6; block path T=201 B=256): "
+          + ", ".join(f"{k} {v:.4f} LSB" for k, v in worst.items()))
+
+
+def _cli_rc(args: list[str]) -> tuple[int, str]:
+    """Exit code and standard error of the port's CLI, in-process."""
     from audio_fir_filter_tpu_torch.cli import main
 
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        rc = main([*args, "--json-metrics"])
-    text = err.getvalue()
+        rc = main(args)
+    return rc, err.getvalue()
+
+
+def _run_cli(args: list[str]) -> dict:
+    """Run the CLI with --json-metrics; it must exit 0. Returns the last
+    file's metrics."""
+    rc, text = _cli_rc([*args, "--json-metrics"])
     check(rc == 0, f"lowcut {' '.join(args)} exited {rc}: {text}")
     return json.loads(text.strip().splitlines()[-1])
 
@@ -281,87 +423,255 @@ def _file_excerpts(inp, out, taps, seam, bits) -> float:
     return worst
 
 
-def phase_main_path(card: str) -> dict:
+STAGES = ("read", "design", "filter", "normalize", "write")
+
+
+def _timed_cli(args: list[str]) -> tuple[dict, float, dict]:
+    """(metrics, wall seconds, launches made) of one CLI run."""
+    before = _counts()
+    t0 = time.perf_counter()
+    m = _run_cli(args)
+    wall = time.perf_counter() - t0
+    after = _counts()
+    return m, wall, {k: after[k] - before[k] for k in after}
+
+
+def _print_stages(tag: str, m: dict, card: str) -> None:
+    stages = ", ".join(f"{k} {m[k]:.3f} s" for k in STAGES)
+    print(f"stages ({tag}) on {card}: {stages}; "
+          f"{m['frames']} frames x {m['channels']} ch")
+
+
+def _check_metadata(inp: Path, out: Path, tag: str) -> None:
     from audio_fir_filter_tpu import audio
+
+    cin = audio.read_audio(inp).container
+    cout = audio.read_audio(out).container
+    check([c.ckid for c in cin.chunks] == [c.ckid for c in cout.chunks],
+          f"({tag}) chunk order changed")
+    for x, y in zip(cin.chunks, cout.chunks):
+        if x.ckid != b"data":
+            check(bytes(x.data) == bytes(y.data),
+                  f"({tag}) chunk {x.ckid!r} not byte-identical")
+
+
+def make_inputs(tmp: Path) -> dict:
+    """(a) 10 min 96 kHz stereo 24-bit WAV with a metadata chunk, (b) 5 min
+    44.1 kHz stereo 16-bit WAV, (c) a loud 10 s 44.1 kHz 16-bit WAV that
+    saturates, (d) 1 min 48 kHz stereo 24-bit AIFF."""
     from audio_fir_filter_tpu.audio import Encoding
     from audio_fir_filter_tpu.audio.chunks import Chunk
     from audio_fir_filter_tpu.audio.synth import create_audio_file
-    from audio_fir_filter_tpu_torch.models import LowCut
-    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
-    from audio_fir_filter_tpu_torch.pipeline.stream import default_segment_len
 
     rng = np.random.default_rng(SEED + 1)
     meta = Chunk(b"bext", bytes(range(256)) * 3 + b"lowcut chip smoke")
-    with tempfile.TemporaryDirectory(prefix="lowcut_smoke_") as tmp:
-        tmp = Path(tmp)
-        a_in, a_out = tmp / "long96k24.wav", tmp / "long96k24_out.wav"
-        b_in, b_out = tmp / "mid44k16.wav", tmp / "mid44k16_out.wav"
-        c_in, c_out = tmp / "loud44k16.wav", tmp / "loud44k16_out.wav"
-        t0 = time.perf_counter()
-        create_audio_file(a_in, _signal(96000.0, 600.0, rng), 96000.0,
-                          encoding=Encoding.PCM_24, extra_chunks=[meta])
-        create_audio_file(b_in, _signal(44100.0, 300.0, rng), 44100.0,
-                          encoding=Encoding.PCM_16)
-        fs = 44100.0
-        t = np.arange(int(fs * 10)) / fs
-        pulses = ((t * 100.0) % 1.0) < 0.05      # 5% duty, 100 Hz
-        loud = (1.98 * pulses - 0.99).astype(np.float32)
-        create_audio_file(c_in, np.stack([loud, loud]), fs,
-                          encoding=Encoding.PCM_16)
-        print(f"synthesized inputs: {time.perf_counter() - t0:.1f} s")
+    files = {"a": tmp / "long96k24.wav", "b": tmp / "mid44k16.wav",
+             "c": tmp / "loud44k16.wav", "d": tmp / "short48k24.aif"}
+    t0 = time.perf_counter()
+    create_audio_file(files["a"], _signal(96000.0, 600.0, rng), 96000.0,
+                      encoding=Encoding.PCM_24, extra_chunks=[meta])
+    create_audio_file(files["b"], _signal(44100.0, 300.0, rng), 44100.0,
+                      encoding=Encoding.PCM_16)
+    fs = 44100.0
+    t = np.arange(int(fs * 10)) / fs
+    pulses = ((t * 100.0) % 1.0) < 0.05      # 5% duty, 100 Hz
+    loud = (1.98 * pulses - 0.99).astype(np.float32)
+    create_audio_file(files["c"], np.stack([loud, loud]), fs,
+                      encoding=Encoding.PCM_16)
+    create_audio_file(files["d"], _signal(48000.0, 60.0, rng), 48000.0,
+                      encoding=Encoding.PCM_24)
+    print(f"synthesized inputs: {time.perf_counter() - t0:.1f} s")
+    return files
 
-        for k in sf.launches:
-            sf.launches[k] = 0
-        ma = _run_cli([str(a_in), str(a_out)])
-        mb = _run_cli([str(b_in), str(b_out)])
-        mc = _run_cli([str(c_in), str(c_out)])
-        counts = dict(sf.launches)
-        print(f"main-path launches: {counts}")
-        for k, v in counts.items():
-            check(v > 0, f"kernel mode {k} never launched on the main path")
 
-        # (a) 10 minutes, 96 kHz, 24-bit: high precision across segments.
-        check(ma["precision"] == "high", f"(a) precision {ma['precision']}")
-        cin = audio.read_audio(a_in).container
-        cout = audio.read_audio(a_out).container
-        check([c.ckid for c in cin.chunks] == [c.ckid for c in cout.chunks],
-              "(a) chunk order changed")
-        for x, y in zip(cin.chunks, cout.chunks):
-            if x.ckid != b"data":
-                check(bytes(x.data) == bytes(y.data),
-                      f"(a) chunk {x.ckid!r} not byte-identical")
-        plan96 = LowCut().plan(96000.0, precision="high", device="cuda")
-        seam = default_segment_len(plan96, channels=2)
-        frames = ma["frames"]
-        check(frames > 2 * seam, f"(a) {frames} frames do not span 3 segments")
-        err_a = _file_excerpts(a_in, a_out, LowCut().taps(96000.0), seam, 24)
-        print(f"(a) 96 kHz 24-bit {frames} frames x 2 ch, M={plan96.m}, "
-              f"B={plan96.block_size}, segment {seam} frames: excerpts "
-              f"{err_a:.4f} LSB@24 (output quantized to 24 bits)")
-        check(err_a <= 1.0, f"(a) excerpt error {err_a} LSB@24 > 1")
+def _out(path: Path, tag: str) -> Path:
+    return path.with_name(f"{path.stem}_{tag}{path.suffix}")
 
-        # (b) 5 minutes, 44.1 kHz, 16-bit: the 16-bit-native route.
-        check(mb["precision"] == "fast", f"(b) precision {mb['precision']}")
-        plan44 = LowCut().plan(44100.0, precision="fast", device="cuda")
-        err_b = _file_excerpts(b_in, b_out, LowCut().taps(44100.0),
-                               default_segment_len(plan44, channels=2), 16)
-        print(f"(b) 44.1 kHz 16-bit {mb['frames']} frames: excerpts "
-              f"{err_b:.4f} LSB@16")
-        check(err_b <= 1.0, f"(b) excerpt error {err_b} LSB@16 > 1")
 
-        # (c) loud 16-bit: saturates, refilters in f32, auto-normalizes.
-        out_peak = float(np.max(np.abs(audio.read_audio(c_out).samples)))
-        print(f"(c) loud 16-bit: filtered peak {mc['peak']:.4f}, "
-              f"output peak {out_peak:.6f}")
-        check(mc["peak"] > 1.0, f"(c) peak {mc['peak']} did not exceed 1")
-        check(out_peak <= 1.0 + 2.0 ** -15, f"(c) output peak {out_peak}")
+def phase_main_path(card: str, files: dict) -> dict:
+    """Scenario 1 on (a), (b), (c) with the default engine. Returns the
+    path's launch counts and, per file, (output, wall s, launches)."""
+    from audio_fir_filter_tpu import audio
+    from audio_fir_filter_tpu_torch.models import LowCut
+    from audio_fir_filter_tpu_torch.pipeline.stream import default_segment_len
 
-        for tag, m in (("a", ma), ("b", mb), ("c", mc)):
-            stages = ", ".join(f"{k} {m[k]:.3f} s" for k in
-                               ("read", "design", "filter", "normalize", "write"))
-            print(f"stages ({tag}) on {card}: {stages}; "
-                  f"{m['frames']} frames x {m['channels']} ch")
+    single = {}
+    _zero_counts()
+    for tag in "abc":
+        out = _out(files[tag], "out")
+        m, wall, made = _timed_cli([str(files[tag]), str(out)])
+        single[tag] = (out, wall, made, m)
+    counts = _counts()
+    print(f"main-path launches: {counts}")
+    for k, v in counts.items():
+        if k.startswith("segment_filter_"):
+            check(v > 0, f"kernel {k} never launched on the main path")
+        else:
+            check(v == 0, f"kernel {k} launched on the segment path")
+    (a_out, _, _, ma), (b_out, _, _, mb), (c_out, _, _, mc) = (
+        single["a"], single["b"], single["c"])
+
+    # (a) 10 minutes, 96 kHz, 24-bit: high precision across segments.
+    check(ma["precision"] == "high", f"(a) precision {ma['precision']}")
+    _check_metadata(files["a"], a_out, "a")
+    plan96 = LowCut().plan(96000.0, precision="high", device="cuda")
+    seam = default_segment_len(plan96, channels=2)
+    frames = ma["frames"]
+    check(frames > 2 * seam, f"(a) {frames} frames do not span 3 segments")
+    err_a = _file_excerpts(files["a"], a_out, LowCut().taps(96000.0), seam, 24)
+    print(f"(a) 96 kHz 24-bit {frames} frames x 2 ch, M={plan96.m}, "
+          f"B={plan96.block_size}, segment {seam} frames: excerpts "
+          f"{err_a:.4f} LSB@24 (output quantized to 24 bits)")
+    check(err_a <= 1.0, f"(a) excerpt error {err_a} LSB@24 > 1")
+
+    # (b) 5 minutes, 44.1 kHz, 16-bit: the 16-bit-native route.
+    check(mb["precision"] == "fast", f"(b) precision {mb['precision']}")
+    check(single["b"][2]["segment_filter_i16"] > 0, "(b) took no i16 route")
+    plan44 = LowCut().plan(44100.0, precision="fast", device="cuda")
+    err_b = _file_excerpts(files["b"], b_out, LowCut().taps(44100.0),
+                           default_segment_len(plan44, channels=2), 16)
+    print(f"(b) 44.1 kHz 16-bit {mb['frames']} frames: excerpts "
+          f"{err_b:.4f} LSB@16")
+    check(err_b <= 1.0, f"(b) excerpt error {err_b} LSB@16 > 1")
+
+    # (c) loud 16-bit: saturates, refilters in f32, auto-normalizes.
+    out_peak = float(np.max(np.abs(audio.read_audio(c_out).samples)))
+    print(f"(c) loud 16-bit: filtered peak {mc['peak']:.4f}, "
+          f"output peak {out_peak:.6f}")
+    check(mc["peak"] > 1.0, f"(c) peak {mc['peak']} did not exceed 1")
+    check(out_peak <= 1.0 + 2.0 ** -15, f"(c) output peak {out_peak}")
+
+    for tag in "abc":
+        _print_stages(tag, single[tag][3], card)
+    return {"counts": counts, "single": single}
+
+
+def phase_fourstep(card: str, files: dict) -> dict:
+    """Scenario 1 with ``--engine fourstep`` on (a) and (b): the block path.
+    Returns its launch counts."""
+    from audio_fir_filter_tpu_torch.models import LowCut
+    from audio_fir_filter_tpu_torch.pipeline.stream import default_segment_len
+
+    _zero_counts()
+    ma, _, _ = _timed_cli([str(files["a"]), str(_out(files["a"], "four")),
+                           "--engine", "fourstep"])
+    mb, _, _ = _timed_cli([str(files["b"]), str(_out(files["b"], "four")),
+                           "--engine", "fourstep"])
+    counts = _counts()
+    print(f"fourstep-path launches: {counts}")
+    for k, v in counts.items():
+        if k.startswith("conv_blocks_"):
+            check(v > 0, f"kernel {k} never launched on the fourstep path")
+        else:
+            check(v == 0, f"kernel {k} launched on the fourstep path")
+
+    check(ma["precision"] == "high", f"(a four) precision {ma['precision']}")
+    _check_metadata(files["a"], _out(files["a"], "four"), "a four")
+    plan = LowCut().plan(96000.0, precision="high", device="cuda",
+                         engine="fourstep")
+    seam = default_segment_len(plan, channels=2)
+    check(ma["frames"] > 2 * seam, "(a four) fewer than 3 segments")
+    err_a = _file_excerpts(files["a"], _out(files["a"], "four"),
+                           LowCut().taps(96000.0), seam, 24)
+    print(f"(a four) --engine fourstep, 96 kHz 24-bit, segment {seam} frames: "
+          f"excerpts {err_a:.4f} LSB@24")
+    check(err_a <= 1.0, f"(a four) excerpt error {err_a} LSB@24 > 1")
+
+    check(mb["precision"] == "fast", f"(b four) precision {mb['precision']}")
+    plan44 = LowCut().plan(44100.0, precision="fast", device="cuda",
+                           engine="fourstep")
+    err_b = _file_excerpts(files["b"], _out(files["b"], "four"),
+                           LowCut().taps(44100.0),
+                           default_segment_len(plan44, channels=2), 16)
+    print(f"(b four) --engine fourstep, 44.1 kHz 16-bit (no 16-bit route): "
+          f"excerpts {err_b:.4f} LSB@16")
+    check(err_b <= 1.0, f"(b four) excerpt error {err_b} LSB@16 > 1")
+    _print_stages("a four", ma, card)
+    _print_stages("b four", mb, card)
     return counts
+
+
+def _sha(path: Path) -> str:
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def _add(*counts: dict) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def phase_batch(card: str, files: dict, single: dict, tmp: Path) -> None:
+    """The batch scenario with ``--resume`` (default filter settings)."""
+    from audio_fir_filter_tpu import audio
+    from audio_fir_filter_tpu_torch.pipeline.manifest import MANIFEST_NAME
+
+    out_d = _out(files["d"], "out")
+    md, wall_d, made_d = _timed_cli([str(files["d"]), str(out_d)])
+    single = {**single, "d": (out_d, wall_d, made_d, md)}
+    inputs = [files[t] for t in "abcd"]
+
+    dest = tmp / "batch_new"
+    argv = [*map(str, inputs), str(dest), "--resume"]
+    _zero_counts()
+    t0 = time.perf_counter()
+    _run_cli(argv)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    print(f"batch launches: {counts}")
+    want = _add(*(single[t][2] for t in "abcd"))
+    check(counts == want, f"batch launches {counts} != single-file sum {want}")
+    for k in ("segment_filter_f32", "segment_filter_f64", "segment_filter_i16"):
+        check(counts[k] > 0, f"kernel {k} never launched in the batch")
+    for t in "abcd":
+        got = audio.read_audio(dest / files[t].name).samples
+        ref = audio.read_audio(single[t][0]).samples
+        check(got.shape == ref.shape and bool(np.array_equal(got, ref)),
+              f"batch output of ({t}) differs from its single-file output")
+    singles = sum(single[t][1] for t in "abcd")
+    print(f"batch of 4 files (a-d) on {card}: wall {wall:.3f} s vs "
+          f"{singles:.3f} s for the four single-file runs "
+          f"({', '.join(f'{t} {single[t][1]:.3f}' for t in 'abcd')}); "
+          "outputs equal the single-file outputs sample for sample")
+
+    # --resume rerun: nothing to do.
+    before = {p.name: (_sha(dest / p.name), (dest / p.name).stat().st_mtime_ns)
+              for p in inputs}
+    _zero_counts()
+    rc, err = _cli_rc(argv)
+    check(rc == 0 and not err, f"--resume rerun exited {rc}: {err}")
+    check(all(v == 0 for v in _counts().values()),
+          f"--resume rerun launched {_counts()}")
+    after = {p.name: (_sha(dest / p.name), (dest / p.name).stat().st_mtime_ns)
+             for p in inputs}
+    check(after == before, "--resume rerun changed an output")
+    print("batch --resume rerun: 0 launches, outputs byte-identical")
+
+    # A missing file in the middle aborts; files before it stay written.
+    late = tmp / "late48k24.aif"
+    dest2 = tmp / "batch_abort"
+    argv2 = [str(files["d"]), str(files["b"]), str(late), str(files["c"]),
+             str(dest2), "--resume"]
+    rc, err = _cli_rc(argv2)
+    check(rc == 1 and "not found" in err.lower(),
+          f"batch with a missing file exited {rc}: {err}")
+    written = sorted(p.name for p in dest2.iterdir() if p.name != MANIFEST_NAME)
+    check(written == sorted([files["d"].name, files["b"].name]),
+          f"after the abort {written} are written")
+    done = json.loads((dest2 / MANIFEST_NAME).read_text())["done"]
+    check(sorted(done) == sorted([str(files["d"]), str(files["b"])]),
+          f"manifest after the abort lists {sorted(done)}")
+
+    # With the file present, --resume filters only the rest.
+    shutil.copyfile(files["d"], late)
+    _zero_counts()
+    _run_cli(argv2)
+    rest = _counts()
+    want = _add(made_d, single["c"][2])
+    check(rest == want, f"resume after abort launched {rest}, want {want}")
+    check(bool(np.array_equal(audio.read_audio(dest2 / late.name).samples,
+                              audio.read_audio(out_d).samples)),
+          "resumed output of the late file differs from its single-file output")
+    print(f"batch abort at a missing file: exit 1, 2 files written and in the "
+          f"manifest; --resume with it present launched {rest} (the rest only)")
 
 
 def main() -> int:
@@ -369,11 +679,23 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     phase_edge_shapes()
-    counts = phase_main_path(env["card"])
+    conv = phase_conv_kernels()
+    phase_conv_edge_shapes()
+    with tempfile.TemporaryDirectory(prefix="lowcut_smoke_") as tmp:
+        tmp = Path(tmp)
+        files = make_inputs(tmp)
+        main_path = phase_main_path(env["card"], files)
+        four = phase_fourstep(env["card"], files)
+        phase_batch(env["card"], files, main_path["single"], tmp)
     rows = [{"name": f"segment_filter_{mode}", "route": "cuda",
-             "source": KERNEL_SOURCE, "replaces": REPLACES,
-             "launches": counts[mode], **kernels[mode]}
+             "source": SEGMENT_SOURCE, "replaces": SEGMENT_REPLACES,
+             "launches": main_path["counts"][f"segment_filter_{mode}"],
+             **kernels[mode]}
             for mode, *_ in MODES]
+    rows += [{"name": f"conv_blocks_{mode}", "route": "cuda",
+              "source": CONV_SOURCE, "replaces": CONV_REPLACES,
+              "launches": four[f"conv_blocks_{mode}"], **conv[mode]}
+             for mode, *_ in CONV_MODES]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """The port's CLI (``audio_fir_filter_tpu_torch.cli``): the JAX package's
 scenario checks, error texts and exit codes for two paths, ``--device``,
-and a UsageError for each path that is not ported yet."""
+``--engine``, and a UsageError for each path that is not ported yet (the
+batch scenario has its own tests in test_torch_batch.py)."""
 
 import subprocess
 import sys
@@ -91,8 +92,6 @@ def test_cuda_without_card_exits_1(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["x.wav"], "batch and manifest"),
-    (["--resume"], "batch and manifest"),
     (["--mesh", "1x2"], "parallel/ over NCCL"),
     (["--coordinator", "localhost:1234"], "parallel/ over NCCL"),
     (["--num-processes", "2"], "parallel/ over NCCL"),
@@ -106,10 +105,34 @@ def test_unported_paths_raise_usage_error(tmp_path, capsys, extra, item):
     assert "not ported" in err and item in err and "ROADMAP.md" in err
 
 
-def test_engine_accepts_only_auto(tmp_path, capsys):
+@pytest.mark.parametrize("engine", ["auto", "pallas", "fourstep", "pease",
+                                    "stockham"])
+def test_engine_choices_filter_within_the_gate(tmp_path, engine):
     p = wav(tmp_path, "a.wav")
-    assert main([str(p), str(tmp_path / "b.wav"), "--engine", "pallas", *CPU]) == 1
+    out = tmp_path / "b.wav"
+    assert main([str(p), str(out), "--engine", engine, *CPU]) == 0
+    taps = kd.highpass_taps(100.0 / FS, kd.kernel_length(200.0 / FS))
+    ref = oracle.direct_filter(audio.read_audio(p).samples[0], taps)
+    assert oracle.max_lsb_error(audio.read_audio(out).samples[0], ref,
+                                bits=16) <= 1.0
+
+
+def test_engine_rejects_unknown_names(tmp_path, capsys):
+    p = wav(tmp_path, "a.wav")
+    assert main([str(p), str(tmp_path / "b.wav"), "--engine", "cufft", *CPU]) == 1
     assert "invalid choice" in capsys.readouterr().err
+    assert not (tmp_path / "b.wav").exists()
+
+
+def test_engine_fourstep_cuda_without_card_exits_1(tmp_path, capsys,
+                                                   monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = wav(tmp_path, "a.wav")
+    out = tmp_path / "b.wav"
+    assert main([str(p), str(out), "--engine", "fourstep",
+                 "--device", "cuda"]) == 1
+    assert "no CUDA card" in capsys.readouterr().err
+    assert not out.exists()
 
 
 def test_band_filter_checks(tmp_path, capsys):

@@ -1,6 +1,7 @@
 """The port never imports JAX: with ``jax`` blocked in ``sys.modules``, a
-fresh interpreter imports the package (and chip_smoke.py) and filters a
-tiny WAV on the CPU through ``process_file``."""
+fresh interpreter imports the package (and chip_smoke.py), filters a tiny
+WAV on the CPU through ``process_file``, runs ``--engine fourstep``
+through the CLI and a ``--resume`` batch."""
 
 import subprocess
 import sys
@@ -28,6 +29,15 @@ m = process_file(sys.argv[2] + "/in.wav", sys.argv[2] + "/out.wav", opts,
                  show_progress=False, device="cpu")
 y = read_audio(sys.argv[2] + "/out.wav").samples
 assert y.shape == (2, 3000) and np.isfinite(y).all() and m["precision"] == "high"
+
+from audio_fir_filter_tpu_torch.cli import main
+cpu = ["--device", "cpu", "-f", "100", "-s", "200", "--block-size", "1024"]
+d = sys.argv[2]
+assert main([d + "/in.wav", d + "/four.wav", "--engine", "fourstep", *cpu]) == 0
+create_audio_file(d + "/in2.wav", x[:, :2000], 8000.0, encoding=Encoding.PCM_16)
+assert main([d + "/in.wav", d + "/in2.wav", d + "/batch", "--resume", *cpu]) == 0
+assert read_audio(d + "/batch/in2.wav").samples.shape == (2, 2000)
+assert (read_audio(d + "/batch/in.wav").samples == y).all()
 assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules
                if sys.modules[k] is not None)
 print("NO_JAX_OK")
