@@ -12,7 +12,9 @@
 // ones decimation in time (bit-reversed in, natural out); the host lays H
 // and the twiddle table out in that order, so nothing is ever reordered.
 // The kernels differ only in pass 1's gather and pass 3's scatter, which
-// each source writes around cols_forward_store / cols_inverse_load.
+// each source writes around cols_forward_store / cols_inverse_load. The
+// probes (probe_phases.cu, probe_floors.cu, probe_stages.cu) launch these
+// passes and FFTs with switches whose defaults are the shipped code.
 //
 // Everything here has internal linkage: each kernel source is its own
 // library with its own copy.
@@ -135,28 +137,43 @@ inline size_t rows_smem(Split sp) {
          sizeof(Cx<T>);
 }
 
+// The column passes take two switches for the decomposition probes
+// (experiments/, csrc/probe_phases.cu); the defaults are the shipped code:
+//   kArith   = false: no FFT and no twiddle, a pure gather/scatter;
+//   kStrided = false: the tile goes to one contiguous run of the scratch
+//              (tc * N1 values at c0 * N1) instead of column-strided.
+
 // Pass 1, after the gather: the tile s holds columns [c0, c0 + tc) of one
 // pair in natural row order and tws the length-N1 roots. Column FFTs, then
 // the pair's scratch gets them times the four-step twiddle (scratch row pos
 // holds k1 = bitrev(pos)).
-template <typename T>
+template <typename T, bool kArith = true, bool kStrided = true>
 __device__ void cols_forward_store(Cx<T>* s, const Cx<T>* tws,
                                    Cx<T>* __restrict__ out,
                                    const Cx<T>* __restrict__ tw4, Split sp,
                                    int c0) {
   const int n1 = 1 << sp.log_n1, n2 = 1 << sp.log_n2;
   __syncthreads();
-  fft_dif(s, sp.tc, sp.log_n1, tws);
+  if constexpr (kArith) fft_dif(s, sp.tc, sp.log_n1, tws);
   for (int i = threadIdx.x; i < sp.tc * n1; i += blockDim.x) {
     const int w = i % sp.tc, pos = i / sp.tc;
     const size_t idx = (size_t)pos * n2 + c0 + w;
-    out[idx] = cmul(s[pos * sp.tc + w], tw4[idx]);
+    const size_t at = kStrided ? idx : (size_t)c0 * n1 + i;
+    if constexpr (kArith) {
+      out[at] = cmul(s[pos * sp.tc + w], tw4[idx]);
+    } else {
+      out[at] = s[pos * sp.tc + w];
+    }
   }
 }
 
+// What pass 2 runs: the shipped FFT * H * inverse, or (probes only) its
+// forward FFT alone, or its shared-memory round trip with no arithmetic.
+constexpr int kRowsFull = 0, kRowsForward = 1, kRowsCopy = 2;
+
 // Pass 2: rows [blockIdx.x * tr, +tr) of pair blockIdx.y of the scratch:
 // FFT, times H, inverse FFT, in place.
-template <typename T>
+template <typename T, int kRows = kRowsFull>
 __global__ void __launch_bounds__(kThreads)
 rows_multiply(Cx<T>* __restrict__ scratch, const Cx<T>* __restrict__ H,
               const Cx<T>* __restrict__ w2, Split sp) {
@@ -167,19 +184,21 @@ rows_multiply(Cx<T>* __restrict__ scratch, const Cx<T>* __restrict__ H,
   const int r0 = blockIdx.x * sp.tr;
   Cx<T>* blk = scratch + (size_t)blockIdx.y * ((size_t)n1 * n2);
 
-  load_table(tws, w2, n2 >> 1);
+  if constexpr (kRows != kRowsCopy) load_table(tws, w2, n2 >> 1);
   for (int i = threadIdx.x; i < sp.tr * n2; i += blockDim.x) {
     const int r = i / n2, q = i % n2;  // row-contiguous global reads
     s[q * sp.tr + r] = blk[(size_t)(r0 + r) * n2 + q];
   }
   __syncthreads();
-  fft_dif(s, sp.tr, sp.log_n2, tws);
-  for (int i = threadIdx.x; i < sp.tr * n2; i += blockDim.x) {
-    const int r = i / n2, q = i % n2;
-    s[q * sp.tr + r] = cmul(s[q * sp.tr + r], H[(size_t)(r0 + r) * n2 + q]);
+  if constexpr (kRows != kRowsCopy) fft_dif(s, sp.tr, sp.log_n2, tws);
+  if constexpr (kRows == kRowsFull) {
+    for (int i = threadIdx.x; i < sp.tr * n2; i += blockDim.x) {
+      const int r = i / n2, q = i % n2;
+      s[q * sp.tr + r] = cmul(s[q * sp.tr + r], H[(size_t)(r0 + r) * n2 + q]);
+    }
+    __syncthreads();
+    ifft_dit(s, sp.tr, sp.log_n2, tws);
   }
-  __syncthreads();
-  ifft_dit(s, sp.tr, sp.log_n2, tws);
   for (int i = threadIdx.x; i < sp.tr * n2; i += blockDim.x) {
     const int r = i / n2, q = i % n2;
     blk[(size_t)(r0 + r) * n2 + q] = s[q * sp.tr + r];
@@ -189,7 +208,7 @@ rows_multiply(Cx<T>* __restrict__ scratch, const Cx<T>* __restrict__ H,
 // Pass 3, before the scatter: the tile s gets columns [c0, c0 + tc) of the
 // pair's scratch times the conjugate twiddle, inverse column FFTs; it is
 // left in natural row order, unscaled. tws holds the length-N1 roots.
-template <typename T>
+template <typename T, bool kArith = true, bool kStrided = true>
 __device__ void cols_inverse_load(Cx<T>* s, const Cx<T>* tws,
                                   const Cx<T>* __restrict__ blk,
                                   const Cx<T>* __restrict__ tw4, Split sp,
@@ -198,10 +217,23 @@ __device__ void cols_inverse_load(Cx<T>* s, const Cx<T>* tws,
   for (int i = threadIdx.x; i < sp.tc * n1; i += blockDim.x) {
     const int w = i % sp.tc, pos = i / sp.tc;
     const size_t idx = (size_t)pos * n2 + c0 + w;
-    s[pos * sp.tc + w] = cmulc(blk[idx], tw4[idx]);
+    const size_t at = kStrided ? idx : (size_t)c0 * n1 + i;
+    if constexpr (kArith) {
+      s[pos * sp.tc + w] = cmulc(blk[at], tw4[idx]);
+    } else {
+      s[pos * sp.tc + w] = blk[at];
+    }
   }
   __syncthreads();
-  ifft_dit(s, sp.tc, sp.log_n1, tws);
+  if constexpr (kArith) ifft_dit(s, sp.tc, sp.log_n1, tws);
+}
+
+// Raise one kernel's dynamic shared-memory limit.
+template <typename K>
+cudaError_t smem_limit(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 // Raise the dynamic shared-memory limit of a kernel's column passes and of

@@ -1,0 +1,343 @@
+// FFT-stage primitive probes on Hopper (sm_90a), float32 and float64.
+//
+// Replaces the TPU probes experiments/mosaic_stages.py pallas_block_op
+// (pallas_call at :92) and experiments/mosaic_stages2.py pallas_block_op
+// (pallas_call at :76): single FFT stages and stage chains on resident
+// [512, 512] blocks. A [512, 512] complex128 block is 4 MB against the
+// 227 KB of shared memory a CTA may use, so here a CTA holds a tile of
+// kW = 16 of the 512 independent length-512 transforms of one block (the
+// layout of fourstep.cuh's fft_dif: element (pos, w) at s[pos * kW + w]),
+// loads it, runs the case, and stores it. The transforms run along axis 1
+// of z [batch, 512, 512] (the TPU's sublane axis); axis 2 is the batch of
+// transforms. Cases (z -> out):
+//   noop       load and store the tile;
+//   r2, r4     one radix-2 / radix-4 DIF stage at block length d (param),
+//              the stage of fft_core.dif_stage;
+//   fwd_r2     the 512-point DIF chain as shipped (fourstep.cuh fft_dif:
+//              nine radix-2 sweeps);
+//   fwd_r4     fft_core.dif_plan(512): r2 at d = 256, r4 at 64, 16, 4, 1;
+//   fwd_r8     fft_core.dif_plan_r8(512): r8 at d = 64, 8, 1;
+//   inv_r2/r4/r8  the DIT inverse chains (ifft_dit / dit_stage), * 1/512;
+//   fwd_inv    fft_dif then ifft_dit (the shipped sweeps), * 1/512;
+//   shuffle    the roll stage of mosaic_stages.py roll_r2_stage at
+//              distance e = param < 32 along the transform axis, as an
+//              in-warp exchange (__shfl_xor_sync): lanes hold consecutive
+//              positions, y = x + x[i ^ e] on (i & e) == 0, else
+//              (x[i ^ e] - x) * exp(-2 pi i v / 64) for column v;
+//   transpose  out[b] = z[b]^T through param x param shared tiles (32, 64);
+//   cmul       out = z * table, table [512, 512] resident in device memory.
+// Stage twiddles come from `table` = exp(-2 pi i k / 512), k < 512,
+// computed in float64 on the host. What bounds each case is what the
+// probe measures; nothing here is on the program's path.
+
+#include <cuda_runtime.h>
+
+#include "fourstep.cuh"
+
+namespace {
+
+constexpr int kN = 512;
+constexpr int kLogN = 9;
+constexpr int kW = 16;
+
+enum Case {
+  kNoop = 0, kR2 = 1, kR4 = 2, kFwdR2 = 3, kFwdR4 = 4, kFwdR8 = 5,
+  kInvR2 = 6, kInvR4 = 7, kInvR8 = 8, kFwdInv = 9, kShuffle = 10,
+  kTranspose = 11, kCmul = 12,
+};
+
+template <typename T>
+__device__ __forceinline__ Cx<T> neg_i(Cx<T> a) { return {a.im, -a.re}; }
+template <typename T>
+__device__ __forceinline__ Cx<T> pos_i(Cx<T> a) { return {-a.im, a.re}; }
+template <typename T>
+__device__ __forceinline__ Cx<T> scl(Cx<T> a, T c) { return {a.re * c, a.im * c}; }
+
+template <typename T>
+__device__ __forceinline__ T rsqrt2() { return T(0.70710678118654752440); }
+
+// Index of element q of butterfly t in a stage of radix R at block length d.
+__device__ __forceinline__ int stage_base(int t, int radix, int d) {
+  const int w = t % kW, b = t / kW, j = b % d, g = b / d;
+  return (g * radix * d + j) * kW + w;
+}
+
+template <typename T>
+__device__ void dif_r2(Cx<T>* s, int d, const Cx<T>* rt) {
+  const int step = kN / (2 * d);
+  for (int t = threadIdx.x; t < kW * kN / 2; t += blockDim.x) {
+    const int j = (t / kW) % d;
+    const int i0 = stage_base(t, 2, d), i1 = i0 + d * kW;
+    const Cx<T> a = s[i0], b = s[i1];
+    s[i0] = cadd(a, b);
+    s[i1] = cmul(csub(a, b), rt[j * step]);
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ void dit_r2(Cx<T>* s, int d, const Cx<T>* rt) {
+  const int step = kN / (2 * d);
+  for (int t = threadIdx.x; t < kW * kN / 2; t += blockDim.x) {
+    const int j = (t / kW) % d;
+    const int i0 = stage_base(t, 2, d), i1 = i0 + d * kW;
+    const Cx<T> a = s[i0], b = cmulc(s[i1], rt[j * step]);
+    s[i0] = cadd(a, b);
+    s[i1] = csub(a, b);
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ void dif_r4(Cx<T>* s, int d, const Cx<T>* rt) {
+  const int step = kN / (4 * d);
+  for (int t = threadIdx.x; t < kW * kN / 4; t += blockDim.x) {
+    const int j = (t / kW) % d, k = j * step;
+    const int i0 = stage_base(t, 4, d), h = d * kW;
+    const Cx<T> a = s[i0], b = s[i0 + h], c = s[i0 + 2 * h], e = s[i0 + 3 * h];
+    const Cx<T> t0 = cadd(a, c), t1 = csub(a, c), t2 = cadd(b, e);
+    const Cx<T> t3 = neg_i(csub(b, e));
+    s[i0] = cadd(t0, t2);
+    s[i0 + h] = cmul(cadd(t1, t3), rt[k]);
+    s[i0 + 2 * h] = cmul(csub(t0, t2), rt[2 * k]);
+    s[i0 + 3 * h] = cmul(csub(t1, t3), rt[3 * k]);
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ void dit_r4(Cx<T>* s, int d, const Cx<T>* rt) {
+  const int step = kN / (4 * d);
+  for (int t = threadIdx.x; t < kW * kN / 4; t += blockDim.x) {
+    const int j = (t / kW) % d, k = j * step;
+    const int i0 = stage_base(t, 4, d), h = d * kW;
+    const Cx<T> u0 = s[i0], u1 = cmulc(s[i0 + h], rt[k]);
+    const Cx<T> u2 = cmulc(s[i0 + 2 * h], rt[2 * k]);
+    const Cx<T> u3 = cmulc(s[i0 + 3 * h], rt[3 * k]);
+    const Cx<T> s0 = cadd(u0, u2), d0 = csub(u0, u2), s1 = cadd(u1, u3);
+    const Cx<T> id1 = pos_i(csub(u1, u3));
+    s[i0] = cadd(s0, s1);
+    s[i0 + h] = cadd(d0, id1);
+    s[i0 + 2 * h] = csub(s0, s1);
+    s[i0 + 3 * h] = csub(d0, id1);
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ void dif_r8(Cx<T>* s, int d, const Cx<T>* rt) {
+  const int step = kN / (8 * d);
+  const T r = rsqrt2<T>();
+  for (int t = threadIdx.x; t < kW * kN / 8; t += blockDim.x) {
+    const int j = (t / kW) % d, k = j * step;
+    const int i0 = stage_base(t, 8, d), h = d * kW;
+    Cx<T> p[8];
+    for (int q = 0; q < 8; ++q) p[q] = s[i0 + q * h];
+    Cx<T> b0[4], b1[4];
+    for (int q = 0; q < 4; ++q) {
+      b0[q] = cadd(p[q], p[q + 4]);
+      b1[q] = csub(p[q], p[q + 4]);
+    }
+    const Cx<T> c0 = cadd(b0[0], b0[2]), c1 = csub(b0[0], b0[2]);
+    const Cx<T> c2 = cadd(b0[1], b0[3]), c3 = neg_i(csub(b0[1], b0[3]));
+    const Cx<T> d0 = b1[0];
+    const Cx<T> d1 = scl(cadd(b1[1], neg_i(b1[1])), r);
+    const Cx<T> d2 = neg_i(b1[2]);
+    const Cx<T> d3 = scl(csub(neg_i(b1[3]), b1[3]), r);
+    const Cx<T> e0 = cadd(d0, d2), e1 = csub(d0, d2), e2 = cadd(d1, d3);
+    const Cx<T> e3 = neg_i(csub(d1, d3));
+    Cx<T> y[8];
+    y[0] = cadd(c0, c2); y[2] = cadd(c1, c3);
+    y[4] = csub(c0, c2); y[6] = csub(c1, c3);
+    y[1] = cadd(e0, e2); y[3] = cadd(e1, e3);
+    y[5] = csub(e0, e2); y[7] = csub(e1, e3);
+    s[i0] = y[0];
+    for (int q = 1; q < 8; ++q) s[i0 + q * h] = cmul(y[q], rt[q * k]);
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ void idft4(const Cx<T>* v, Cx<T>* o) {
+  const Cx<T> s0 = cadd(v[0], v[2]), d0 = csub(v[0], v[2]);
+  const Cx<T> s1 = cadd(v[1], v[3]), id1 = pos_i(csub(v[1], v[3]));
+  o[0] = cadd(s0, s1); o[1] = cadd(d0, id1);
+  o[2] = csub(s0, s1); o[3] = csub(d0, id1);
+}
+
+template <typename T>
+__device__ void dit_r8(Cx<T>* s, int d, const Cx<T>* rt) {
+  const int step = kN / (8 * d);
+  const T r = rsqrt2<T>();
+  for (int t = threadIdx.x; t < kW * kN / 8; t += blockDim.x) {
+    const int j = (t / kW) % d, k = j * step;
+    const int i0 = stage_base(t, 8, d), h = d * kW;
+    Cx<T> u[8];
+    u[0] = s[i0];
+    for (int q = 1; q < 8; ++q) u[q] = cmulc(s[i0 + q * h], rt[q * k]);
+    const Cx<T> ev[4] = {u[0], u[2], u[4], u[6]};
+    const Cx<T> od[4] = {u[1], u[3], u[5], u[7]};
+    Cx<T> p[4], q4[4];
+    idft4(ev, p);
+    idft4(od, q4);
+    const Cx<T> tq[4] = {
+        q4[0], scl(csub(q4[1], neg_i(q4[1])), r), pos_i(q4[2]),
+        scl(cadd(q4[3], neg_i(q4[3])), -r)};
+    for (int m = 0; m < 4; ++m) {
+      s[i0 + m * h] = cadd(p[m], tq[m]);
+      s[i0 + (m + 4) * h] = csub(p[m], tq[m]);
+    }
+  }
+  __syncthreads();
+}
+
+// The roll stage as an in-warp exchange: lanes hold positions.
+template <typename T>
+__device__ void shuffle_r2(Cx<T>* s, int e, int v0, const Cx<T>* rt) {
+  for (int t = threadIdx.x; t < kW * kN; t += blockDim.x) {
+    const int w = t / kN, pos = t % kN;
+    const Cx<T> x = s[pos * kW + w];
+    const Cx<T> o = {__shfl_xor_sync(0xffffffffu, x.re, e),
+                     __shfl_xor_sync(0xffffffffu, x.im, e)};
+    s[pos * kW + w] = (pos & e) == 0
+        ? cadd(x, o)
+        : cmul(csub(o, x), rt[((v0 + w) * (kN / 64)) % kN]);
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stage_tile(const Cx<T>* __restrict__ z, Cx<T>* __restrict__ out,
+           const Cx<T>* __restrict__ roots, int kcase, int param) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Cx<T>* rt = reinterpret_cast<Cx<T>*>(smem_raw);
+  Cx<T>* s = rt + kN;
+  const int v0 = blockIdx.x * kW;
+  const size_t base = (size_t)blockIdx.y * kN * kN;
+  load_table(rt, roots, kN);
+  for (int i = threadIdx.x; i < kN * kW; i += blockDim.x)
+    s[i] = z[base + (size_t)(i / kW) * kN + v0 + i % kW];
+  __syncthreads();
+  T scale = T(1);
+  switch (kcase) {
+    case kR2: dif_r2(s, param, rt); break;
+    case kR4: dif_r4(s, param, rt); break;
+    case kFwdR2: fft_dif(s, kW, kLogN, rt); break;
+    case kFwdR4:
+      dif_r2(s, 256, rt);
+      for (int d = 64; d >= 1; d /= 4) dif_r4(s, d, rt);
+      break;
+    case kFwdR8:
+      for (int d = 64; d >= 1; d /= 8) dif_r8(s, d, rt);
+      break;
+    case kInvR2:
+      ifft_dit(s, kW, kLogN, rt);
+      scale = T(1) / kN;
+      break;
+    case kInvR4:
+      for (int d = 1; d <= 64; d *= 4) dit_r4(s, d, rt);
+      dit_r2(s, 256, rt);
+      scale = T(1) / kN;
+      break;
+    case kInvR8:
+      for (int d = 1; d <= 64; d *= 8) dit_r8(s, d, rt);
+      scale = T(1) / kN;
+      break;
+    case kFwdInv:
+      fft_dif(s, kW, kLogN, rt);
+      ifft_dit(s, kW, kLogN, rt);
+      scale = T(1) / kN;
+      break;
+    case kShuffle: shuffle_r2(s, param, v0, rt); break;
+    default: break;  // kNoop
+  }
+  for (int i = threadIdx.x; i < kN * kW; i += blockDim.x)
+    out[base + (size_t)(i / kW) * kN + v0 + i % kW] = scl(s[i], scale);
+}
+
+// out[b] = z[b]^T through kT x kT tiles (padded against bank conflicts).
+template <typename T, int kT>
+__global__ void __launch_bounds__(kThreads)
+transpose(const Cx<T>* __restrict__ z, Cx<T>* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Cx<T>* tile = reinterpret_cast<Cx<T>*>(smem_raw);
+  const size_t base = (size_t)blockIdx.z * kN * kN;
+  const int r0 = blockIdx.y * kT, c0 = blockIdx.x * kT;
+  for (int i = threadIdx.x; i < kT * kT; i += blockDim.x) {
+    const int r = i / kT, c = i % kT;
+    tile[r * (kT + 1) + c] = z[base + (size_t)(r0 + r) * kN + c0 + c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kT * kT; i += blockDim.x) {
+    const int r = i / kT, c = i % kT;
+    out[base + (size_t)(c0 + r) * kN + r0 + c] = tile[c * (kT + 1) + r];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+cmul_table(const Cx<T>* __restrict__ z, Cx<T>* __restrict__ out,
+           const Cx<T>* __restrict__ table, size_t total) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i] = cmul(z[i], table[i % ((size_t)kN * kN)]);
+}
+
+template <typename T, int kT>
+int launch_transpose(const Cx<T>* z, Cx<T>* out, long long batch,
+                     cudaStream_t st) {
+  const size_t sm = (size_t)kT * (kT + 1) * sizeof(Cx<T>);
+  const cudaError_t err = smem_limit(transpose<T, kT>, sm);
+  if (err != cudaSuccess) return err;
+  transpose<T, kT><<<dim3(kN / kT, kN / kT, (unsigned)batch), kThreads, sm,
+                     st>>>(z, out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int run(const void* zin, void* zout, const void* table, long long batch,
+        int kcase, int param, cudaStream_t st) {
+  const Cx<T>* z = static_cast<const Cx<T>*>(zin);
+  Cx<T>* out = static_cast<Cx<T>*>(zout);
+  const Cx<T>* tab = static_cast<const Cx<T>*>(table);
+  if (kcase == kTranspose) {
+    if (param == 32) return launch_transpose<T, 32>(z, out, batch, st);
+    if (param == 64) return launch_transpose<T, 64>(z, out, batch, st);
+    return cudaErrorInvalidValue;
+  }
+  if (kcase == kCmul) {
+    cmul_table<T><<<1024, kThreads, 0, st>>>(z, out, tab,
+                                             (size_t)batch * kN * kN);
+    return cudaGetLastError();
+  }
+  if (kcase < kNoop || kcase > kShuffle) return cudaErrorInvalidValue;
+  const bool stage = kcase == kR2 || kcase == kR4;
+  const int radix = kcase == kR2 ? 2 : 4;
+  if (stage && (param < 1 || param & (param - 1) || radix * param > kN))
+    return cudaErrorInvalidValue;
+  if (kcase == kShuffle && (param < 1 || param > 16 || param & (param - 1)))
+    return cudaErrorInvalidValue;
+  const size_t sm = (size_t)(kN + kN * kW) * sizeof(Cx<T>);
+  const cudaError_t err = smem_limit(stage_tile<T>, sm);
+  if (err != cudaSuccess) return err;
+  stage_tile<T><<<dim3(kN / kW, (unsigned)batch), kThreads, sm, st>>>(
+      z, out, tab, kcase, param);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). z, out: [batch, 512, 512]
+// complex of the entry's type; table: the 512 roots, or for cmul the
+// [512, 512] table. Each launches on `stream`, allocates nothing, does not
+// synchronize, and returns the launch error.
+#define LOWCUT_STAGES_ENTRY(NAME, T)                                         \
+  extern "C" int NAME(const void* z, void* out, const void* table,          \
+                      long long batch, int kcase, int param, void* stream) { \
+    return run<T>(z, out, table, batch, kcase, param,                       \
+                  static_cast<cudaStream_t>(stream));                       \
+  }
+
+LOWCUT_STAGES_ENTRY(lowcut_probe_stages_f32, float)
+LOWCUT_STAGES_ENTRY(lowcut_probe_stages_f64, double)

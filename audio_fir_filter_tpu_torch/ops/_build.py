@@ -42,6 +42,25 @@ FAMILIES = {
         # chunk_pairs, stream
         [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _ll, _p],
     ),
+    # The decomposition probes of experiments/ (nothing on the program's
+    # path calls them).
+    "probe_floors": (
+        ("lowcut_probe_empty", "lowcut_probe_passthru", "lowcut_probe_bw",
+         "lowcut_probe_copy_floor"),
+        # x, y, aux, a, b, c, mode, stream
+        [_p, _p, _p, _ll, _ll, _ll, _i, _p],
+    ),
+    "probe_phases": (
+        ("lowcut_probe_phases_f32", "lowcut_probe_phases_f64"),
+        # blocks, out, H, tw4, w1, w2, scratch, pairs, log_n1, log_n2,
+        # variant, stream
+        [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _p],
+    ),
+    "probe_stages": (
+        ("lowcut_probe_stages_f32", "lowcut_probe_stages_f64"),
+        # z, out, table, batch, case, param, stream
+        [_p, _p, _p, _ll, _i, _i, _p],
+    ),
 }
 
 

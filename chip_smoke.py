@@ -8,8 +8,9 @@ result line):
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; a CUDA card is required;
-2. build: one nvcc per kernel source (segment filter, block convolution),
-   all started together, from the checkout;
+2. build: one nvcc per kernel source (segment filter, block convolution,
+   and the probes' floors, phases and stages), all started together, from
+   the checkout;
 3. segment kernel vs its plain PyTorch version on the card at the main
    path's shapes (2 channels, 30 s of audio, B = 2^18): high (M = 38,400 at
    96 kHz), fast (M = 38,400) and i16 (M = 17,640 at 44.1 kHz) — error,
@@ -39,7 +40,13 @@ result line):
    nothing and leaves the outputs' bytes as they were; a batch with a
    missing file in the middle exits 1 with exactly the files before it
    written and listed in the manifest, and its ``--resume`` rerun, with
-   the file present, filters only the rest (the launch counts show it).
+   the file present, filters only the rest (the launch counts show it);
+9. the probes of ``audio_fir_filter_tpu_torch/experiments/`` (the card
+   counterparts of the TPU probes in ``experiments/``): each probe kernel
+   against its plain version (bitwise for the copies, the stated tolerance
+   otherwise), then, with the launch counters zeroed before and read
+   after, each probe's sweep through its ``run`` entry point, printing the
+   decomposition tables; every probe kernel must have launched.
 
 Output: the phase reports, then a JSON line of per-kernel results, then
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -69,6 +76,27 @@ SEGMENT_SOURCE = "audio_fir_filter_tpu_torch/csrc/segment_filter.cu"
 SEGMENT_REPLACES = "audio_fir_filter_tpu/ops/pallas_fft.py:753"
 CONV_SOURCE = "audio_fir_filter_tpu_torch/csrc/conv_blocks.cu"
 CONV_REPLACES = "audio_fir_filter_tpu/ops/pallas_fft.py:986"
+_CSRC = "audio_fir_filter_tpu_torch/csrc/"
+# Probe kernel rows: (source, the TPU probe it replaces).
+PROBE_ROWS = {
+    "probe_passthru": (_CSRC + "probe_floors.cu",
+                       "experiments/dispatch_floor_probe.py:60"),
+    "probe_bw": (_CSRC + "probe_floors.cu", "experiments/dma_bw_micro.py:31"),
+    "probe_copy_floor": (_CSRC + "probe_floors.cu",
+                         "experiments/copy_floor_probe.py:61"),
+    **{f"probe_phases_{m}": (_CSRC + "probe_phases.cu",
+                             "experiments/fused_phase_decomp.py:57")
+       for m in ("f32", "f64")},
+    **{f"probe_passes_{m}": (_CSRC + "probe_phases.cu",
+                             "experiments/pallas_micro.py:41")
+       for m in ("f32", "f64")},
+    **{f"probe_stages_{m}": (_CSRC + "probe_stages.cu",
+                             "experiments/mosaic_stages.py:65")
+       for m in ("f32", "f64")},
+    **{f"probe_stages2_{m}": (_CSRC + "probe_stages.cu",
+                              "experiments/mosaic_stages2.py:50")
+       for m in ("f32", "f64")},
+}
 EXCERPT = 4096
 
 
@@ -142,22 +170,36 @@ def phase_build() -> None:
                 print(f"  ptxas {name}:", line.strip())
 
 
+def _probe_modules() -> tuple:
+    from audio_fir_filter_tpu_torch.experiments import (
+        copy_floor_probe, dispatch_floor_probe, dma_bw_micro,
+        fused_phase_decomp, mosaic_stages, mosaic_stages2, pallas_micro)
+
+    return (dispatch_floor_probe, dma_bw_micro, copy_floor_probe,
+            fused_phase_decomp, pallas_micro, mosaic_stages, mosaic_stages2)
+
+
 def _zero_counts() -> None:
     from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
     from audio_fir_filter_tpu_torch.ops import segment_filter as sf
 
-    for counts in (sf.launches, cb.launches):
+    for counts in (sf.launches, cb.launches,
+                   *(m.launches for m in _probe_modules())):
         for k in counts:
             counts[k] = 0
 
 
 def _counts() -> dict:
-    """Every kernel's launch count, by the kernels line's row name."""
+    """Every kernel's launch count, by the kernels line's row name (the
+    probes' counters are keyed so already)."""
     from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
     from audio_fir_filter_tpu_torch.ops import segment_filter as sf
 
-    return {**{f"segment_filter_{k}": v for k, v in sf.launches.items()},
-            **{f"conv_blocks_{k}": v for k, v in cb.launches.items()}}
+    out = {**{f"segment_filter_{k}": v for k, v in sf.launches.items()},
+           **{f"conv_blocks_{k}": v for k, v in cb.launches.items()}}
+    for m in _probe_modules():
+        out.update(m.launches)
+    return out
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -674,6 +716,37 @@ def phase_batch(card: str, files: dict, single: dict, tmp: Path) -> None:
           f"manifest; --resume with it present launched {rest} (the rest only)")
 
 
+def phase_probes(card: str) -> dict:
+    """Phase 9: the probe kernels against their plain versions, then their
+    sweeps with the counters zeroed before and read after. Returns the
+    probe rows of the kernels line."""
+    mods = _probe_modules()
+    t0 = time.perf_counter()
+    errs = {}
+    for mod in mods:
+        errs.update(mod.verify("cuda"))
+    print("probes vs plain versions: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    _zero_counts()
+    timed = {}
+    for mod in mods:
+        r = mod.run("cuda", reps=3)
+        print("\n".join(r["lines"]))
+        timed.update(r["kernels"])
+    counts = _counts()
+    print(f"probe-path launches on {card}: "
+          f"{ {k: counts[k] for k in counts if k.startswith('probe_')} }")
+    for k in [*PROBE_ROWS, "probe_empty"]:
+        check(counts[k] > 0, f"probe kernel {k} never launched by its sweep")
+    check(set(errs) == set(PROBE_ROWS) == set(timed),
+          f"probe rows {sorted(errs)} / {sorted(timed)} != {sorted(PROBE_ROWS)}")
+    print(f"probes: {time.perf_counter() - t0:.1f} s")
+    return {name: {"name": name, "route": "cuda", "source": src,
+                   "replaces": rep, "launches": counts[name],
+                   "max_abs_err": errs[name], **timed[name]}
+            for name, (src, rep) in PROBE_ROWS.items()}
+
+
 def main() -> int:
     env = phase_environment()
     phase_build()
@@ -687,6 +760,7 @@ def main() -> int:
         main_path = phase_main_path(env["card"], files)
         four = phase_fourstep(env["card"], files)
         phase_batch(env["card"], files, main_path["single"], tmp)
+    probes = phase_probes(env["card"])
     rows = [{"name": f"segment_filter_{mode}", "route": "cuda",
              "source": SEGMENT_SOURCE, "replaces": SEGMENT_REPLACES,
              "launches": main_path["counts"][f"segment_filter_{mode}"],
@@ -696,6 +770,7 @@ def main() -> int:
               "source": CONV_SOURCE, "replaces": CONV_REPLACES,
               "launches": four[f"conv_blocks_{mode}"], **conv[mode]}
              for mode, *_ in CONV_MODES]
+    rows += list(probes.values())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """The port never imports JAX: with ``jax`` blocked in ``sys.modules``, a
 fresh interpreter imports the package (and chip_smoke.py), filters a tiny
 WAV on the CPU through ``process_file``, runs ``--engine fourstep``
-through the CLI and a ``--resume`` batch."""
+through the CLI and a ``--resume`` batch, and imports every probe module
+of ``audio_fir_filter_tpu_torch.experiments`` and runs one plain version
+of each."""
 
 import subprocess
 import sys
@@ -38,6 +40,23 @@ create_audio_file(d + "/in2.wav", x[:, :2000], 8000.0, encoding=Encoding.PCM_16)
 assert main([d + "/in.wav", d + "/in2.wav", d + "/batch", "--resume", *cpu]) == 0
 assert read_audio(d + "/batch/in2.wav").samples.shape == (2, 2000)
 assert (read_audio(d + "/batch/in.wav").samples == y).all()
+import importlib
+import pkgutil
+import torch
+import audio_fir_filter_tpu_torch.experiments as ex
+names = [m.name for m in pkgutil.iter_modules(ex.__path__)]
+assert len(names) == 8, names
+mods = {n: importlib.import_module("audio_fir_filter_tpu_torch.experiments." + n)
+        for n in names}
+z = torch.zeros((1, 512, 512), dtype=torch.complex64)
+mods["mosaic_stages"].stage(z, "fwd r8")
+mods["mosaic_stages2"].chain(z, "inv r4")
+mods["fused_phase_decomp"].phases(torch.zeros((2, 256)),
+                                  torch.ones((16, 16), dtype=torch.complex64),
+                                  "no_tr")
+mods["copy_floor_probe"].copy_floor(torch.zeros((1, 2, 512, 512)), "tr")
+mods["dma_bw_micro"].bw(torch.zeros((1, 16, 512)), "in")
+mods["dispatch_floor_probe"].passthru(torch.zeros((1, 2, 512, 512)))
 assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules
                if sys.modules[k] is not None)
 print("NO_JAX_OK")

@@ -1,0 +1,358 @@
+"""The card probes' plain versions against the JAX package, on the CPU.
+
+The probes of ``audio_fir_filter_tpu_torch/experiments/`` hold CUDA kernels
+(``csrc/probe_*.cu``) that run only on the card; here their plain PyTorch
+versions, which ``chip_smoke.py`` holds the kernels against, are held
+against the JAX package's own functions and NumPy float64:
+
+- stages: ``fft_core.fft_dif_rows`` / ``ifft_dit_rows`` with the same plan
+  (float32 arithmetic: 2e-5 of max |ref|) and ``fft_core.dif_fft_np``
+  (float64: 1e-10); the roll stage against its formula in
+  ``experiments/mosaic_stages.py``;
+- passes: K3(K2(K1)) and ``full`` against ``pallas_fft._conv_xla_mirror``
+  (float32 outputs: 2e-5 of max |ref|) and ``ops.conv_blocks.reference``;
+  K2a(K1) against ``fft_core.fourstep_fft_np`` mapped to the kernel's
+  bit-reversed order (1e-10);
+- ablations: ``ac_only`` is x / N2, ``b_only`` a row-wise circular
+  convolution, ``no_tr`` a permutation that is the identity with a flat
+  spectrum, the copy variants equal x;
+- the device rule: no probe runs on ``cuda`` without a card or on the CPU,
+  and the CPU wrappers build nothing.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from audio_fir_filter_tpu_torch.experiments import copy_floor_probe as cfp
+from audio_fir_filter_tpu_torch.experiments import dispatch_floor_probe as dfp
+from audio_fir_filter_tpu_torch.experiments import dma_bw_micro as bwm
+from audio_fir_filter_tpu_torch.experiments import fused_phase_decomp as fpd
+from audio_fir_filter_tpu_torch.experiments import mosaic_stages as ms
+from audio_fir_filter_tpu_torch.experiments import mosaic_stages2 as ms2
+from audio_fir_filter_tpu_torch.experiments import pallas_micro as pm
+from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
+from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+
+MODULES = (dfp, bwm, cfp, fpd, pm, ms, ms2)
+REL_F32, REL_F64 = 2e-5, 1e-10
+
+
+def _rel_err(got, want) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _z(seed, batch=1):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((batch, ms.N, ms.N))
+            + 1j * rng.standard_normal((batch, ms.N, ms.N)))
+
+
+# ----------------------------------------------------------------- stages
+
+def test_stage_plans_are_the_jax_plans():
+    from audio_fir_filter_tpu.ops import fft_core as fc
+
+    for n in (2, 4, 8, 64, 256, 512, 1024, 4096):
+        assert ms.dif_plan(n) == fc.dif_plan(n)
+        assert ms.dif_plan_r8(n) == fc.dif_plan_r8(n)
+    assert ms.r2_plan(512) == tuple(("r2", 512 >> k) for k in range(1, 10))
+
+
+_PLANS = {"r2": ms.r2_plan(512), "r4": ms.dif_plan(512),
+          "r8": ms.dif_plan_r8(512)}
+_STAGE_CASES = [("r2 d=128", (("r2", 128),)), ("r2 d=1", (("r2", 1),)),
+                ("r4 d=16", (("r4", 16),)), ("r4 d=1", (("r4", 1),)),
+                ("fwd r2", _PLANS["r2"]), ("fwd r4", _PLANS["r4"]),
+                ("fwd r8", _PLANS["r8"])]
+
+
+def _jax_rows(z, plan, inverse=False):
+    """fc.fft_dif_rows / ifft_dit_rows in float32 with fc.dif_tables, on
+    the first 16 of the 512 independent transforms (columns)."""
+    import jax
+
+    from audio_fir_filter_tpu.ops import fft_core as fc
+
+    a = fc.ARITH_F32
+    tabs = fc.dif_tables(512, a.name, plan)
+    f = fc.ifft_dit_rows if inverse else fc.fft_dif_rows
+    y = jax.jit(lambda re, im: f(a.from_f32(re, im), 512, a, tabs=tabs,
+                                 plan=plan))(z.real.astype(np.float32),
+                                             z.imag.astype(np.float32))
+    return np.asarray(y.re) + 1j * np.asarray(y.im)
+
+
+_COLS = slice(0, 16)
+
+
+@pytest.mark.parametrize("name,plan", _STAGE_CASES)
+def test_stage_matches_jax_float32_and_numpy_float64(name, plan):
+    from audio_fir_filter_tpu.ops import fft_core as fc
+
+    z = _z(1)
+    got32 = ms.stage(torch.from_numpy(z).to(torch.complex64), name).numpy()
+    assert _rel_err(got32[..., _COLS], _jax_rows(z[..., _COLS], plan)) < REL_F32
+    got64 = ms.stage(torch.from_numpy(z), name).numpy()
+    want = np.swapaxes(fc.dif_fft_np(np.swapaxes(z, -1, -2), plan), -1, -2)
+    assert _rel_err(got64, want) < REL_F64
+
+
+@pytest.mark.parametrize("kind", ["r2", "r4", "r8"])
+def test_inverse_chain_matches_jax_and_inverts(kind):
+    plan = _PLANS[kind]
+    z = _z(2)
+    y = _jax_rows(z[..., _COLS], plan)
+    got = ms.stage(torch.from_numpy(np.tile(y, 32).astype(np.complex64)),
+                   f"inv {kind}")
+    assert _rel_err(got.numpy()[..., _COLS],
+                    _jax_rows(y, plan, inverse=True)) < REL_F32
+    back = ms.stage(ms.stage(torch.from_numpy(z), f"fwd {kind}"), f"inv {kind}")
+    assert _rel_err(back.numpy(), z) < REL_F64
+
+
+def test_forward_plus_inverse_is_the_identity_and_matches_jax():
+    z = _z(3)
+    got = ms2.chain(torch.from_numpy(z), "inv r2")
+    assert got.shape == z.shape
+    fi = ms.stage(torch.from_numpy(z), "fwd+inv").numpy()
+    assert _rel_err(fi, z) < REL_F64
+    fi32 = ms.stage(torch.from_numpy(z).to(torch.complex64), "fwd+inv").numpy()
+    want = _jax_rows(_jax_rows(z[..., _COLS], _PLANS["r2"]), _PLANS["r2"],
+                     inverse=True)
+    assert _rel_err(fi32[..., _COLS], want) < REL_F32
+
+
+@pytest.mark.parametrize("e", [1, 8])
+def test_roll_stage_matches_its_formula(e):
+    """mosaic_stages.py roll_r2_stage: y[i] = x[i] + x[i+e] where (i // e)
+    is even, (x[i-e] - x[i]) * w where odd, along the transform axis."""
+    z = _z(4)
+    w = np.exp(-2j * np.pi * np.arange(ms.N)[None, :] / 64.0)
+    u, v = np.roll(z, -e, axis=1), np.roll(z, e, axis=1)
+    lower = ((np.arange(ms.N) // e) % 2 == 0)[:, None]
+    want = np.where(lower, z + u, (v - z) * w)
+    got = ms.stage(torch.from_numpy(z), f"shuffle e={e}").numpy()
+    assert _rel_err(got, want) < REL_F64
+
+
+def test_copy_cases_transpose_and_cmul():
+    z = torch.from_numpy(_z(5, batch=2))
+    assert torch.equal(ms.stage(z, "noop"), z)
+    for t in ("transpose 32", "transpose 64"):
+        assert torch.equal(ms.stage(z, t), z.transpose(1, 2))
+    tw4 = sf.kernel_tables(512 * 512, torch.complex128, torch.device("cpu"))[0]
+    assert torch.equal(ms.stage(z, "cmul"), z * tw4)
+
+
+# ----------------------------------------------------------------- passes
+
+def _blocks(nb, b, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(-1, 1, (nb, b)).astype(np.float32))
+
+
+def _taps(b, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(b // 2) * np.exp(-np.arange(b // 2) / 30.0)
+
+
+@pytest.mark.parametrize("b,precision", [(256, "high"), (256, "fast"),
+                                         (1024, "fast")])
+def test_passes_compose_to_the_jax_block_convolution(b, precision):
+    import jax.numpy as jnp
+
+    from audio_fir_filter_tpu.ops import fft_core as fc
+    from audio_fir_filter_tpu.ops import pallas_fft as pf
+
+    x = _blocks(4, b, seed=b)
+    taps = _taps(b, seed=b + 1)
+    cdt = torch.complex128 if precision == "high" else torch.complex64
+    H = torch.from_numpy(sf.spectrum_layout(taps, b)).to(cdt)
+    y = pm.k3(pm.k2(pm.k1(x, H), H), H)
+    full = fpd.phases(x, H, "full")
+    ref = cb.reference(x, pm.conv_plan(H))
+
+    arith = fc.ARITH_DF64 if precision == "high" else fc.ARITH_F32
+    karith = pf._kernel_arith(arith)
+    hp = np.zeros(b)
+    hp[: len(taps)] = taps[::-1]      # spectrum_layout reverses the taps
+    H2 = pf.wrap_spectrum(pf.kernel_spectrum_np(hp, b, arith), arith)
+    cc = dict(pf.conv_tables(b, karith.name), H=H2)
+    r, c = fc.fourstep_split(b)
+    yj = np.asarray(pf._conv_xla_mirror(jnp.asarray(x.numpy()), cc, r, c,
+                                        karith))
+    for got in (y, full):
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        assert _rel_err(got.numpy(), yj) < REL_F32
+        assert _rel_err(got.numpy(), ref.numpy()) < REL_F32
+
+
+@pytest.mark.parametrize("b", [256, 2048])
+def test_k1_then_k2a_is_the_fourstep_fft_in_the_kernels_order(b):
+    from audio_fir_filter_tpu.ops import fft_core as fc
+
+    x = _blocks(2, b, seed=7)
+    H = torch.from_numpy(sf.spectrum_layout(_taps(b, 8), b))
+    got = pm.k2a(pm.k1(x, H), H)[0].numpy()
+    z = x[0].double().numpy() + 1j * x[1].double().numpy()
+    r, c = fc.fourstep_split(b)
+    y = fc.fourstep_fft_np(z, r, c)                 # [c, r]
+    natural = np.empty(b, complex)
+    sr, sc = fc.pease_sigma(r), fc.pease_sigma(c)
+    natural[sr[None, :] + r * sc[:, None]] = y
+    l1, l2 = sf.split(b)
+    order = sf._bitrev(l1)[:, None] + (1 << l1) * sf._bitrev(l2)[None, :]
+    assert _rel_err(got, natural[order]) < REL_F64
+    assert _rel_err(got, np.fft.fft(z)[order]) < REL_F64
+
+
+def test_k2_is_the_row_convolution_times_n2():
+    b = 256
+    x = _blocks(2, b, seed=9)
+    H = torch.from_numpy(sf.spectrum_layout(_taps(b, 10), b))
+    s = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (1, 16, 16)) + 0j)
+    got = pm.k2(s.clone(), H)[0].numpy()
+    n2 = 16
+    hnat = H.numpy()[:, sf._bitrev(4)]              # natural row spectra
+    h = np.fft.ifft(hnat, axis=1)
+    z = s[0].numpy()
+    want = np.array([[sum(z[r, m] * h[r, (k - m) % n2] for m in range(n2))
+                      for k in range(n2)] for r in range(16)]) * n2
+    assert _rel_err(got, want) < REL_F64
+    assert pm.k1(x, H).shape == (1, 16, 16)
+
+
+@pytest.mark.parametrize("b", [256, 1 << 14])
+def test_ablations_have_their_defined_outputs(b):
+    x = _blocks(4, b, seed=12)
+    H = torch.from_numpy(sf.spectrum_layout(_taps(b, 13), b))
+    n1, n2 = sf.split_shape(b)
+    ac = pm.k3_reference(pm.k1_reference(x, H), H)
+    assert _rel_err(ac.numpy(), x.numpy() / n2) < 1e-6   # float32 output
+    assert torch.equal(fpd.phases(x, H, "ac_only"), (x.double() / n2).float())
+    assert torch.equal(fpd.phases(x, H, "copy"), x)
+    b_only = fpd.phases(x, H, "b_only")
+    want = pm.blocks_of(pm.k2_reference(pm.pairs_of(x, H.dtype), H))
+    assert torch.equal(b_only, want)
+    ones = torch.ones_like(H)
+    assert _rel_err(fpd.phases(x, ones, "no_tr").numpy(), x.numpy()) < 1e-6
+    no_tr, full = fpd.phases(x, H, "no_tr"), fpd.phases(x, H, "full")
+    assert no_tr.shape == full.shape and bool(torch.isfinite(no_tr).all())
+    # The contiguous tile store is a different layout only where a tile
+    # holds fewer than N2 columns (B > 8192).
+    assert torch.equal(no_tr, full) == (fpd.tile_columns(b) == n2)
+
+
+def test_tile_layouts_are_inverse_permutations():
+    s = torch.arange(2 * 128 * 128).reshape(2, 128, 128)
+    for tc in (16, 64, 128):
+        c = fpd._tiles_contiguous(s, tc)
+        assert torch.equal(fpd._tiles_strided(c, tc), s)
+        # column tile t is one contiguous run
+        assert torch.equal(c.reshape(2, -1)[0, : 128 * tc],
+                           s[0, :, :tc].reshape(-1))
+
+
+# ------------------------------------------------------- floors, copies
+
+@pytest.mark.parametrize("variant", cfp.VARIANTS)
+def test_copy_floor_variants_are_the_identity(variant):
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (1, 2, 512, 512)).astype(np.float32))
+    assert torch.equal(cfp.copy_floor(x, variant), x)
+
+
+def test_passthru_and_bw_plain_versions():
+    x = torch.rand((2, 2, 512, 512))
+    assert torch.equal(dfp.passthru(x), x)
+    xb = torch.rand((3, 32, 512)) - 0.5
+    assert torch.equal(bwm.bw(xb, "both", 4), xb)
+    s = bwm.bw(xb, "in", 1)
+    assert s.dtype == torch.float64 and torch.allclose(
+        s, torch.from_numpy(xb.numpy().astype(np.float64).sum(axis=(1, 2))))
+    out = bwm.bw(xb, "out", 1)
+    assert out[2, 17, 5].item() == 2 * 8192 + 1 * 512 + 5
+    assert torch.equal(bwm.bw(xb, "none"), torch.ones((3, 8, 512)))
+    assert bwm.moved_bytes("both", 128, 512) == 2 * 128 * 512 * 512 * 4
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="multiple of 16"):
+        bwm.bw(torch.zeros((2, 20, 512)), "both")
+    with pytest.raises(ValueError, match="mode"):
+        bwm.bw(torch.zeros((2, 16, 512)), "sideways")
+    with pytest.raises(ValueError, match="split"):
+        bwm.bw(torch.zeros((2, 16, 512)), "in", 3)
+    with pytest.raises(ValueError, match="variant"):
+        cfp.copy_floor(torch.zeros((1, 2, 512, 512)), "fast")
+    with pytest.raises(ValueError, match=r"\[g, 2, 512, 512\]"):
+        dfp.passthru(torch.zeros((1, 2, 512, 256)))
+    H = torch.zeros((16, 16), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="even"):
+        fpd.phases(torch.zeros((3, 256)), H, "full")
+    with pytest.raises(ValueError, match="complex64 or complex128"):
+        pm.k1(torch.zeros((2, 256)), H.real)
+    with pytest.raises(ValueError, match="scratch"):
+        pm.k2(torch.zeros((1, 16, 8), dtype=torch.complex64), H)
+    with pytest.raises(ValueError, match="unknown case"):
+        ms.stage(torch.zeros((1, 512, 512), dtype=torch.complex64), "r16")
+    with pytest.raises(ValueError, match="case must be one of"):
+        ms2.chain(torch.zeros((1, 512, 512), dtype=torch.complex64), "cmul")
+
+
+# --------------------------------------------------- device rule, build
+
+@pytest.mark.parametrize("mod", MODULES, ids=lambda m: m.__name__.split(".")[-1])
+def test_probe_refuses_cuda_without_a_card_and_the_cpu(mod, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (mod.run, mod.verify):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            fn("cuda")
+        with pytest.raises(ValueError, match="time a CUDA card"):
+            fn("cpu")
+
+
+def test_cpu_wrappers_build_nothing_and_count_no_launch(monkeypatch):
+    from audio_fir_filter_tpu_torch.ops import _build
+
+    def no_build(*a, **k):
+        raise AssertionError("a CPU tensor must not build a kernel")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    before = [dict(m.launches) for m in MODULES]
+    x = torch.zeros((2, 256))
+    H = torch.ones((16, 16), dtype=torch.complex64)
+    fpd.phases(x, H, "full")
+    pm.k3(pm.k2(pm.k1(x, H), H), H)
+    ms.stage(torch.zeros((1, 512, 512), dtype=torch.complex64), "fwd r4")
+    ms2.chain(torch.zeros((1, 512, 512), dtype=torch.complex64), "fwd r8")
+    cfp.copy_floor(torch.zeros((1, 2, 512, 512)), "hint")
+    dfp.passthru(torch.zeros((1, 2, 512, 512)))
+    bwm.bw(torch.zeros((1, 16, 512)), "in")
+    assert [dict(m.launches) for m in MODULES] == before
+
+
+def test_probe_families_are_built_with_their_argtypes():
+    import ctypes
+
+    from audio_fir_filter_tpu_torch.ops import _build
+
+    assert list(_build.FAMILIES) == ["segment_filter", "conv_blocks",
+                                     "probe_floors", "probe_phases",
+                                     "probe_stages"]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    entries, args = _build.FAMILIES["probe_floors"]
+    assert entries == ("lowcut_probe_empty", "lowcut_probe_passthru",
+                       "lowcut_probe_bw", "lowcut_probe_copy_floor")
+    assert args == [p, p, p, ll, ll, ll, i, p]
+    entries, args = _build.FAMILIES["probe_phases"]
+    assert entries == ("lowcut_probe_phases_f32", "lowcut_probe_phases_f64")
+    assert args == [p] * 7 + [ll, i, i, i, p]
+    entries, args = _build.FAMILIES["probe_stages"]
+    assert entries == ("lowcut_probe_stages_f32", "lowcut_probe_stages_f64")
+    assert args == [p, p, p, ll, i, i, p]
+    for name in _build.FAMILIES:
+        assert (_build.CSRC / f"{name}.cu").is_file()
