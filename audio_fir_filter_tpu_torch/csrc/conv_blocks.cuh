@@ -6,7 +6,9 @@
 // template arguments are the shipped kernel.
 //
 // blocks / out are [nb, B] float32; pair p is blocks 2p (real part) and
-// 2p + 1 (imaginary part). Internal linkage, as fourstep.cuh.
+// 2p + 1 (imaginary part). Thread (t, w) of a CTA reads and writes column
+// c0 + w at rows pos<0>(t, m): lanes run along w, so each row's 8 columns
+// (32 bytes of a block) are one sector. Internal linkage, as fourstep.cuh.
 
 #pragma once
 
@@ -15,59 +17,62 @@
 namespace {
 
 // Pass 1: forward column FFTs of pair (pair0 + blockIdx.y), columns
-// [blockIdx.x * tc, +tc), read from blocks 2p and 2p + 1.
-template <typename T, bool kArith = true, bool kStrided = true>
-__global__ void __launch_bounds__(kThreads)
+// [blockIdx.x * kW, +kW), read from blocks 2p and 2p + 1.
+template <typename T, class S, bool kArith = true, bool kStrided = true>
+__global__ void __launch_bounds__(Cols<T, S>::kThreads, Cols<T, S>::kMinBlocks)
 pairs_forward(const float* __restrict__ blocks, Cx<T>* __restrict__ scratch,
               const Cx<T>* __restrict__ tw4, const Cx<T>* __restrict__ w1,
-              Split sp, long long pair0) {
+              long long pair0) {
+  using C = Cols<T, S>;
+  using F = typename C::F;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n1 = 1 << sp.log_n1, n2 = 1 << sp.log_n2, tc = sp.tc;
-  const size_t b = (size_t)n1 * n2;
-  Cx<T>* tws = reinterpret_cast<Cx<T>*>(smem_raw);
-  Cx<T>* s = tws + (n1 >> 1);
-  const float* x0 = blocks + (size_t)(pair0 + blockIdx.y) * 2 * b;
-  const float* x1 = x0 + b;
-  const int c0 = blockIdx.x * tc;
+  Cx<T>* tab = reinterpret_cast<Cx<T>*>(smem_raw);
+  const int tid = threadIdx.x, w = tid & (C::kW - 1), t = tid >> C::kLogW;
+  const int c0 = blockIdx.x * C::kW;
+  const float* x0 = blocks + (size_t)(pair0 + blockIdx.y) * 2 * S::kB;
+  const float* x1 = x0 + S::kB;
 
-  load_table(tws, w1, n1 >> 1);
-  for (int i = threadIdx.x; i < tc * n1; i += blockDim.x) {
-    const int w = i % tc, row = i / tc;
-    const size_t n = (size_t)row * n2 + c0 + w;
-    s[row * tc + w] = {static_cast<T>(x0[n]), static_cast<T>(x1[n])};
+  if constexpr (kArith) F::build_table(tab, w1, tid, C::kThreads);
+  Cx<T> v[F::kE];
+#pragma unroll
+  for (int m = 0; m < F::kE; ++m) {
+    const size_t n = (size_t)F::template pos<0>(t, m) * S::kN2 + c0 + w;
+    v[m] = {static_cast<T>(x0[n]), static_cast<T>(x1[n])};
   }
-  cols_forward_store<T, kArith, kStrided>(
-      s, tws, scratch + (size_t)blockIdx.y * b, tw4, sp, c0);
+  cols_forward_store<T, S, kArith, kStrided>(
+      v, tab + F::kTableElems + w, F::kGlobalTw ? w1 : tab,
+      scratch + (size_t)blockIdx.y * S::kB, tw4, c0, t, w);
 }
 
 // Pass 3: inverse column FFTs, scale 1/B, write every position of blocks
 // 2p (real part) and 2p + 1 (imaginary part). With kArith = false: no
 // twiddle, no FFT and no scale.
-template <typename T, bool kArith = true, bool kStrided = true>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, class S, bool kArith = true, bool kStrided = true>
+__global__ void __launch_bounds__(Cols<T, S>::kThreads, Cols<T, S>::kMinBlocks)
 pairs_inverse(const Cx<T>* __restrict__ scratch, float* __restrict__ out,
               const Cx<T>* __restrict__ tw4, const Cx<T>* __restrict__ w1,
-              Split sp, long long pair0) {
+              long long pair0) {
+  using C = Cols<T, S>;
+  using F = typename C::F;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n1 = 1 << sp.log_n1, n2 = 1 << sp.log_n2, tc = sp.tc;
-  const size_t b = (size_t)n1 * n2;
-  Cx<T>* tws = reinterpret_cast<Cx<T>*>(smem_raw);
-  Cx<T>* s = tws + (n1 >> 1);
-  const int c0 = blockIdx.x * tc;
+  Cx<T>* tab = reinterpret_cast<Cx<T>*>(smem_raw);
+  const int tid = threadIdx.x, w = tid & (C::kW - 1), t = tid >> C::kLogW;
+  const int c0 = blockIdx.x * C::kW;
 
-  load_table(tws, w1, n1 >> 1);
-  cols_inverse_load<T, kArith, kStrided>(
-      s, tws, scratch + (size_t)blockIdx.y * b, tw4, sp, c0);
+  if constexpr (kArith) F::build_table(tab, w1, tid, C::kThreads);
+  Cx<T> v[F::kE];
+  cols_inverse_load<T, S, kArith, kStrided>(
+      v, tab + F::kTableElems + w, F::kGlobalTw ? w1 : tab,
+      scratch + (size_t)blockIdx.y * S::kB, tw4, c0, t, w);
 
-  const T scale = kArith ? T(1) / static_cast<T>(b) : T(1);
-  float* y0 = out + (size_t)(pair0 + blockIdx.y) * 2 * b;
-  float* y1 = y0 + b;
-  for (int i = threadIdx.x; i < tc * n1; i += blockDim.x) {
-    const int w = i % tc, row = i / tc;
-    const size_t n = (size_t)row * n2 + c0 + w;
-    const Cx<T> v = s[row * tc + w];
-    y0[n] = static_cast<float>(v.re * scale);
-    y1[n] = static_cast<float>(v.im * scale);
+  const T scale = kArith ? T(1) / static_cast<T>(S::kB) : T(1);
+  float* y0 = out + (size_t)(pair0 + blockIdx.y) * 2 * S::kB;
+  float* y1 = y0 + S::kB;
+#pragma unroll
+  for (int m = 0; m < F::kE; ++m) {
+    const size_t n = (size_t)F::template pos<0>(t, m) * S::kN2 + c0 + w;
+    y0[n] = static_cast<float>(v[m].re * scale);
+    y1[n] = static_cast<float>(v[m].im * scale);
   }
 }
 

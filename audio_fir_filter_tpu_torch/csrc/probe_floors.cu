@@ -26,14 +26,19 @@
 //       1buf      pass 1's gather + column-strided store, pass 3's
 //                 strided load + scatter; no pass 2;
 //       copy      pass 1 and 3 storing / loading each tile contiguously,
-//                 with pass 2's row round trip through shared memory;
+//                 with pass 2's row round trip (fourstep.cuh rows_multiply
+//                 in its copy mode: each row loaded into registers,
+//                 through the shipped exchanges, stored);
 //       tr        copy, with pass 1's and 3's column-strided scratch
 //                 access (the shipped layout; the card's plane transpose);
 //       notiles   one element per thread, no shared-memory tile;
 //       hint      copy with 16-byte vector loads and stores;
-//       lt256     copy at tc = 32 columns per tile (shipped: 16);
+//       lt256     copy at tc = 32 columns per tile;
 //       lt512     copy at tc = 8 (tc = 64 would need 256 KB of shared
-//                 memory, above the 227 KB a CTA may use).
+//                 memory, above the 227 KB a CTA may use). The cf_ tiles
+//                 are this probe's own (tc = 16 elsewhere), as the TPU
+//                 probe's were; the shipped column passes gather into
+//                 and store from registers.
 
 #include <cuda_runtime.h>
 
@@ -304,16 +309,17 @@ int tiled_copy(const float* x, float* y, Cx<float>* sc, long long pairs,
   const size_t sm = (size_t)kTc * kSide * sizeof(Cx<float>);
   cudaError_t err = smem_limit(cf_gather<kTc, kStrided, kVec>, sm);
   if (err == cudaSuccess) err = smem_limit(cf_scatter<kTc, kStrided, kVec>, sm);
-  const Split sp = make_split(kLog, kLog);
-  const size_t sr = rows_smem<float>(sp);
-  if (err == cudaSuccess) err = smem_limit(rows_multiply<float, kRowsCopy>, sr);
+  using S = Split<kLog, kLog>;
+  using RW = Rows<float, S>;
+  if (err == cudaSuccess)
+    err = smem_limit(rows_multiply<float, S, kRowsCopy>, RW::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 gc(kSide / kTc, (unsigned)pairs);
   cf_gather<kTc, kStrided, kVec><<<gc, kThreads, sm, st>>>(x, sc);
   if (rows) {
-    const dim3 gr(kSide / sp.tr, (unsigned)pairs);
-    rows_multiply<float, kRowsCopy><<<gr, kThreads, sr, st>>>(sc, nullptr,
-                                                              nullptr, sp);
+    const dim3 gr(kSide / RW::kR, (unsigned)pairs);
+    rows_multiply<float, S, kRowsCopy><<<gr, RW::kThreads, RW::kSmem, st>>>(
+        sc, nullptr, nullptr);
   }
   cf_scatter<kTc, kStrided, kVec><<<gc, kThreads, sm, st>>>(sc, y);
   return cudaGetLastError();

@@ -28,7 +28,10 @@
 //   k2a      pass 2's forward row FFT alone, in place;
 //   k3       pass 3 alone: scratch -> blocks (* conj tw4, inverse, 1/B).
 // What bounds each pass is what these probes measure (PERF.md); they
-// allocate nothing and do not synchronize.
+// allocate nothing and do not synchronize. To keep the build short the
+// probes instantiate the splits of their own shapes only: B = 2^16 .. 2^20
+// (N1 x N2 = 256 x 256 .. 1024 x 1024); any other B returns
+// cudaErrorInvalidValue, which the wrappers raise.
 
 #include <cuda_runtime.h>
 
@@ -41,75 +44,91 @@ enum Variant {
   kK1 = 5, kK2 = 6, kK2a = 7, kK3 = 8,
 };
 
-template <typename T>
-cudaError_t allow_variants(Split sp) {
-  const size_t c = cols_smem<T>(sp), r = rows_smem<T>(sp);
-  cudaError_t err = allow_smem<T>(pairs_forward<T>, pairs_inverse<T>, sp);
-  if (err == cudaSuccess) err = smem_limit(pairs_forward<T, false>, c);
-  if (err == cudaSuccess) err = smem_limit(pairs_inverse<T, false>, c);
-  if (err == cudaSuccess) err = smem_limit(pairs_forward<T, true, false>, c);
-  if (err == cudaSuccess) err = smem_limit(pairs_inverse<T, true, false>, c);
-  if (err == cudaSuccess) err = smem_limit(rows_multiply<T, kRowsForward>, r);
+template <typename T, class S>
+cudaError_t allow_variants() {
+  const size_t c = Cols<T, S>::kSmem, r = Rows<T, S>::kSmem;
+  cudaError_t err = allow_smem<T, S>(pairs_forward<T, S>, pairs_inverse<T, S>);
+  if (err == cudaSuccess) err = smem_limit(pairs_forward<T, S, false>, c);
+  if (err == cudaSuccess) err = smem_limit(pairs_inverse<T, S, false>, c);
+  if (err == cudaSuccess) err = smem_limit(pairs_forward<T, S, true, false>, c);
+  if (err == cudaSuccess) err = smem_limit(pairs_inverse<T, S, true, false>, c);
+  if (err == cudaSuccess) err = smem_limit(rows_multiply<T, S, kRowsForward>, r);
   return err;
+}
+
+template <typename T, class S>
+int run_split(const float* blocks, float* out, const Cx<T>* Hc,
+              const Cx<T>* t4, const Cx<T>* r1, const Cx<T>* r2, Cx<T>* s,
+              long long pairs, int variant, cudaStream_t st) {
+  using C = Cols<T, S>;
+  using RW = Rows<T, S>;
+  cudaError_t err = allow_variants<T, S>();
+  if (err != cudaSuccess) return err;
+  const int tc = C::kThreads, tr = RW::kThreads;
+  const size_t sc = C::kSmem, sr = RW::kSmem;
+  const dim3 gc(S::kN2 / C::kW, (unsigned)pairs);
+  const dim3 gr(S::kN1 / RW::kR, (unsigned)pairs);
+  switch (variant) {
+    case kFull:
+      pairs_forward<T, S><<<gc, tc, sc, st>>>(blocks, s, t4, r1, 0);
+      rows_multiply<T, S><<<gr, tr, sr, st>>>(s, Hc, r2);
+      pairs_inverse<T, S><<<gc, tc, sc, st>>>(s, out, t4, r1, 0);
+      break;
+    case kAcOnly:
+      pairs_forward<T, S><<<gc, tc, sc, st>>>(blocks, s, t4, r1, 0);
+      pairs_inverse<T, S><<<gc, tc, sc, st>>>(s, out, t4, r1, 0);
+      break;
+    case kBOnly:
+      pairs_forward<T, S, false><<<gc, tc, sc, st>>>(blocks, s, t4, r1, 0);
+      rows_multiply<T, S><<<gr, tr, sr, st>>>(s, Hc, r2);
+      pairs_inverse<T, S, false><<<gc, tc, sc, st>>>(s, out, t4, r1, 0);
+      break;
+    case kNoTr:
+      pairs_forward<T, S, true, false><<<gc, tc, sc, st>>>(blocks, s, t4, r1, 0);
+      rows_multiply<T, S><<<gr, tr, sr, st>>>(s, Hc, r2);
+      pairs_inverse<T, S, true, false><<<gc, tc, sc, st>>>(s, out, t4, r1, 0);
+      break;
+    case kCopy:
+      pairs_forward<T, S, false><<<gc, tc, sc, st>>>(blocks, s, t4, r1, 0);
+      pairs_inverse<T, S, false><<<gc, tc, sc, st>>>(s, out, t4, r1, 0);
+      break;
+    case kK1:
+      pairs_forward<T, S><<<gc, tc, sc, st>>>(blocks, s, t4, r1, 0);
+      break;
+    case kK2:
+      rows_multiply<T, S><<<gr, tr, sr, st>>>(s, Hc, r2);
+      break;
+    case kK2a:
+      rows_multiply<T, S, kRowsForward><<<gr, tr, sr, st>>>(s, Hc, r2);
+      break;
+    case kK3:
+      pairs_inverse<T, S><<<gc, tc, sc, st>>>(s, out, t4, r1, 0);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+#define LOWCUT_PROBE_SPLITS(X) X(8, 8) X(9, 8) X(9, 9) X(10, 9) X(10, 10)
+
+template <typename F>
+int with_probe_split(int log_n1, int log_n2, F&& f) {
+  LOWCUT_PROBE_SPLITS(LOWCUT_SPLIT_CASE)
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 int run(const float* blocks, float* out, const void* H, const void* tw4,
         const void* w1, const void* w2, void* scratch, long long pairs,
         int log_n1, int log_n2, int variant, cudaStream_t st) {
-  const Split sp = make_split(log_n1, log_n2);
-  cudaError_t err = allow_variants<T>(sp);
-  if (err != cudaSuccess) return err;
-  const size_t sc = cols_smem<T>(sp), sr = rows_smem<T>(sp);
-  const Cx<T>* Hc = static_cast<const Cx<T>*>(H);
-  const Cx<T>* t4 = static_cast<const Cx<T>*>(tw4);
-  const Cx<T>* r1 = static_cast<const Cx<T>*>(w1);
-  const Cx<T>* r2 = static_cast<const Cx<T>*>(w2);
-  Cx<T>* s = static_cast<Cx<T>*>(scratch);
-  const dim3 gc((1 << log_n2) / sp.tc, (unsigned)pairs);
-  const dim3 gr((1 << log_n1) / sp.tr, (unsigned)pairs);
-  switch (variant) {
-    case kFull:
-      pairs_forward<T><<<gc, kThreads, sc, st>>>(blocks, s, t4, r1, sp, 0);
-      rows_multiply<T><<<gr, kThreads, sr, st>>>(s, Hc, r2, sp);
-      pairs_inverse<T><<<gc, kThreads, sc, st>>>(s, out, t4, r1, sp, 0);
-      break;
-    case kAcOnly:
-      pairs_forward<T><<<gc, kThreads, sc, st>>>(blocks, s, t4, r1, sp, 0);
-      pairs_inverse<T><<<gc, kThreads, sc, st>>>(s, out, t4, r1, sp, 0);
-      break;
-    case kBOnly:
-      pairs_forward<T, false><<<gc, kThreads, sc, st>>>(blocks, s, t4, r1, sp, 0);
-      rows_multiply<T><<<gr, kThreads, sr, st>>>(s, Hc, r2, sp);
-      pairs_inverse<T, false><<<gc, kThreads, sc, st>>>(s, out, t4, r1, sp, 0);
-      break;
-    case kNoTr:
-      pairs_forward<T, true, false><<<gc, kThreads, sc, st>>>(blocks, s, t4, r1,
-                                                             sp, 0);
-      rows_multiply<T><<<gr, kThreads, sr, st>>>(s, Hc, r2, sp);
-      pairs_inverse<T, true, false><<<gc, kThreads, sc, st>>>(s, out, t4, r1,
-                                                             sp, 0);
-      break;
-    case kCopy:
-      pairs_forward<T, false><<<gc, kThreads, sc, st>>>(blocks, s, t4, r1, sp, 0);
-      pairs_inverse<T, false><<<gc, kThreads, sc, st>>>(s, out, t4, r1, sp, 0);
-      break;
-    case kK1:
-      pairs_forward<T><<<gc, kThreads, sc, st>>>(blocks, s, t4, r1, sp, 0);
-      break;
-    case kK2:
-      rows_multiply<T><<<gr, kThreads, sr, st>>>(s, Hc, r2, sp);
-      break;
-    case kK2a:
-      rows_multiply<T, kRowsForward><<<gr, kThreads, sr, st>>>(s, Hc, r2, sp);
-      break;
-    case kK3:
-      pairs_inverse<T><<<gc, kThreads, sc, st>>>(s, out, t4, r1, sp, 0);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  return with_probe_split(log_n1, log_n2, [&](auto sp) {
+    return run_split<T, decltype(sp)>(
+        blocks, out, static_cast<const Cx<T>*>(H),
+        static_cast<const Cx<T>*>(tw4), static_cast<const Cx<T>*>(w1),
+        static_cast<const Cx<T>*>(w2), static_cast<Cx<T>*>(scratch), pairs,
+        variant, st);
+  });
 }
 
 }  // namespace

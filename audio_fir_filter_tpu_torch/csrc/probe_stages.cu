@@ -6,19 +6,24 @@
 // [512, 512] blocks. A [512, 512] complex128 block is 4 MB against the
 // 227 KB of shared memory a CTA may use, so here a CTA holds a tile of
 // kW = 16 of the 512 independent length-512 transforms of one block (the
-// layout of fourstep.cuh's fft_dif: element (pos, w) at s[pos * kW + w]),
+// layout of fft_dif below: element (pos, w) at s[pos * kW + w]),
 // loads it, runs the case, and stores it. The transforms run along axis 1
 // of z [batch, 512, 512] (the TPU's sublane axis); axis 2 is the batch of
 // transforms. Cases (z -> out):
 //   noop       load and store the tile;
 //   r2, r4     one radix-2 / radix-4 DIF stage at block length d (param),
 //              the stage of fft_core.dif_stage;
-//   fwd_r2     the 512-point DIF chain as shipped (fourstep.cuh fft_dif:
-//              nine radix-2 sweeps);
+//   fwd_r2     the 512-point DIF chain as the kernels shipped it before
+//              their register redesign (fft_dif below: nine radix-2
+//              sweeps over the shared tile), the baseline of the chains;
 //   fwd_r4     fft_core.dif_plan(512): r2 at d = 256, r4 at 64, 16, 4, 1;
 //   fwd_r8     fft_core.dif_plan_r8(512): r8 at d = 64, 8, 1;
 //   inv_r2/r4/r8  the DIT inverse chains (ifft_dit / dit_stage), * 1/512;
-//   fwd_inv    fft_dif then ifft_dit (the shipped sweeps), * 1/512;
+//   fwd_inv    fft_dif then ifft_dit (the radix-2 sweeps), * 1/512;
+//   fwd_reg    the shipped 512-point forward FFT (fourstep.cuh Fft<T, 9>:
+//              8 registers per thread, 3 radix-8 stages, 2 swizzled
+//              exchanges), 8 transforms per CTA, loaded from and stored to
+//              device memory straight from the registers; output as fwd_r2;
 //   shuffle    the roll stage of mosaic_stages.py roll_r2_stage at
 //              distance e = param < 32 along the transform axis, as an
 //              in-warp exchange (__shfl_xor_sync): lanes hold consecutive
@@ -43,15 +48,68 @@ constexpr int kW = 16;
 enum Case {
   kNoop = 0, kR2 = 1, kR4 = 2, kFwdR2 = 3, kFwdR4 = 4, kFwdR8 = 5,
   kInvR2 = 6, kInvR4 = 7, kInvR8 = 8, kFwdInv = 9, kShuffle = 10,
-  kTranspose = 11, kCmul = 12,
+  kTranspose = 11, kCmul = 12, kFwdReg = 13,
 };
+
+template <typename T>
+__device__ void load_table(Cx<T>* dst, const Cx<T>* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// In-place radix-2 FFTs over a tile of W transforms of length L = 2^logL,
+// element (pos, w) at s[pos * W + w]. tw[k] = exp(-2*pi*i*k/L), k < L/2.
+// The caller synchronizes before the first stage; every stage ends with a
+// barrier. The kernels' FFTs before their register redesign, kept here as
+// the chains' baseline.
+
+// Forward, decimation in frequency: natural order in, bit-reversed out.
+template <typename T>
+__device__ void fft_dif(Cx<T>* s, int W, int logL, const Cx<T>* tw) {
+  const int nbf = W << (logL - 1);
+  for (int lh = logL - 1; lh >= 0; --lh) {
+    const int h = 1 << lh;
+    const int tshift = logL - 1 - lh;
+    for (int t = threadIdx.x; t < nbf; t += blockDim.x) {
+      const int w = t % W;
+      const int b = t / W;
+      const int j = b & (h - 1);
+      const int lo = (((b >> lh) << (lh + 1)) + j) * W + w;
+      const int hi = lo + h * W;
+      const Cx<T> a = s[lo], c = s[hi];
+      s[lo] = cadd(a, c);
+      s[hi] = cmul(csub(a, c), tw[j << tshift]);
+    }
+    __syncthreads();
+  }
+}
+
+// Inverse (conjugate twiddles, no scaling), decimation in time:
+// bit-reversed order in, natural out.
+template <typename T>
+__device__ void ifft_dit(Cx<T>* s, int W, int logL, const Cx<T>* tw) {
+  const int nbf = W << (logL - 1);
+  for (int lh = 0; lh < logL; ++lh) {
+    const int h = 1 << lh;
+    const int tshift = logL - 1 - lh;
+    for (int t = threadIdx.x; t < nbf; t += blockDim.x) {
+      const int w = t % W;
+      const int b = t / W;
+      const int j = b & (h - 1);
+      const int lo = (((b >> lh) << (lh + 1)) + j) * W + w;
+      const int hi = lo + h * W;
+      const Cx<T> a = s[lo];
+      const Cx<T> c = cmulc(s[hi], tw[j << tshift]);
+      s[lo] = cadd(a, c);
+      s[hi] = csub(a, c);
+    }
+    __syncthreads();
+  }
+}
 
 template <typename T>
 __device__ __forceinline__ Cx<T> neg_i(Cx<T> a) { return {a.im, -a.re}; }
 template <typename T>
 __device__ __forceinline__ Cx<T> pos_i(Cx<T> a) { return {-a.im, a.re}; }
-template <typename T>
-__device__ __forceinline__ Cx<T> scl(Cx<T> a, T c) { return {a.re * c, a.im * c}; }
 
 template <typename T>
 __device__ __forceinline__ T rsqrt2() { return T(0.70710678118654752440); }
@@ -256,6 +314,32 @@ stage_tile(const Cx<T>* __restrict__ z, Cx<T>* __restrict__ out,
     out[base + (size_t)(i / kW) * kN + v0 + i % kW] = scl(s[i], scale);
 }
 
+// The shipped forward FFT along axis 1: CTA (blockIdx.x, blockIdx.y)
+// takes transforms (columns) [blockIdx.x * kRegW, +kRegW) of block
+// blockIdx.y, thread (t, w) as in the kernels' column passes.
+constexpr int kRegW = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(Cols<T, Split<kLogN, kLogN>>::kThreads)
+reg_chain(const Cx<T>* __restrict__ z, Cx<T>* __restrict__ out,
+          const Cx<T>* __restrict__ roots) {
+  using F = Fft<T, kLogN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Cx<T>* tab = reinterpret_cast<Cx<T>*>(smem_raw);
+  const int tid = threadIdx.x, w = tid & (kRegW - 1), t = tid >> 3;
+  const size_t base = (size_t)blockIdx.y * kN * kN + blockIdx.x * kRegW + w;
+  F::build_table(tab, roots, tid, kRegW * F::kNT);
+  Cx<T> v[F::kE];
+#pragma unroll
+  for (int m = 0; m < F::kE; ++m)
+    v[m] = z[base + (size_t)F::template pos<0>(t, m) * kN];
+  __syncthreads();
+  F::template forward<kRegW, false>(v, tab + F::kTableElems + w, tab, t);
+#pragma unroll
+  for (int m = 0; m < F::kE; ++m)
+    out[base + (size_t)F::template pos<F::kStages - 1>(t, m) * kN] = v[m];
+}
+
 // out[b] = z[b]^T through kT x kT tiles (padded against bank conflicts).
 template <typename T, int kT>
 __global__ void __launch_bounds__(kThreads)
@@ -309,6 +393,15 @@ int run(const void* zin, void* zout, const void* table, long long batch,
   if (kcase == kCmul) {
     cmul_table<T><<<1024, kThreads, 0, st>>>(z, out, tab,
                                              (size_t)batch * kN * kN);
+    return cudaGetLastError();
+  }
+  if (kcase == kFwdReg) {
+    using C = Cols<T, Split<kLogN, kLogN>>;
+    static_assert(C::kW == kRegW, "the column passes' tile width");
+    const cudaError_t err = smem_limit(reg_chain<T>, C::kSmem);
+    if (err != cudaSuccess) return err;
+    reg_chain<T><<<dim3(kN / kRegW, (unsigned)batch), C::kThreads, C::kSmem,
+                   st>>>(z, out, tab);
     return cudaGetLastError();
   }
   if (kcase < kNoop || kcase > kShuffle) return cudaErrorInvalidValue;

@@ -20,30 +20,37 @@
 //
 // What bounds it on this card: one B = 2^18 complex block is 2 MiB in
 // complex64 and 4 MiB in complex128, far above the 227 KB of shared memory
-// a block may use, so the TPU's "whole block resident in VMEM" design does
+// a CTA may use, so the TPU's "whole block resident in VMEM" design does
 // not carry over. This kernel is a four-step FFT, B = N1*N2 (512*512 at
 // 2^18), in three launches with a [pairs, B] scratch in device memory
-// between them. Each pass reads and writes the scratch once (~30 MB of
-// traffic per float64 pair with the tables) and each length-N
-// shared-memory FFT makes log2(N) barrier-separated radix-2 sweeps over
-// its tile. On an H100 SXM (700 W) a float64 pair takes ~50 us: ~0.6 TB/s
-// and ~1 TFLOP/s, so the sweeps, not device memory or arithmetic, limit
-// this simple design:
+// between them (at most 64 f64 pairs, 256 MB, a call; 2 x 30 s of 96 kHz
+// audio is 7 pairs, 28 MB, which stays in the 50 MB L2):
 //   1. forward columns: gather the pair's two windows straight from the
-//      signal, length-N1 DIF FFT down each column (natural in, bit-reversed
-//      out), times the four-step twiddle;
+//      signal into registers, length-N1 DIF FFT down each column (natural
+//      in, bit-reversed out), times the four-step twiddle, stored from the
+//      registers;
 //   2. rows: length-N2 DIF FFT, times H (host-laid-out in this exact
 //      bit-reversed order, so no reordering happens anywhere), inverse
-//      length-N2 DIT FFT (bit-reversed in, natural out);
+//      length-N2 DIT FFT (bit-reversed in, natural out), each row read and
+//      written coalesced by its own threads;
 //   3. inverse columns: times the conjugate twiddle, inverse DIT FFT, scale
 //      1/B, write only the valid positions, quantize for int16 I/O, and take
 //      the output peak max|y| over written positions (atomicMax on the float
 //      bits, which order like the values for non-negative floats).
-// All twiddles and H come from host float64 tables (rounded to float for the
-// f32 modes); no fast-math sin/cos is used. The FFTs, pass 2 and the column
-// passes' shared halves live in fourstep.cuh (shared with conv_blocks.cu);
-// this file holds the signal gather, the valid-hop scatter and the peak.
-// Making this fast (wgmma DFT as a matmul, TMA, fewer sweeps) is later work.
+// Before the redesign each pass ran 4.1-7.0x above its device-memory floor
+// (PERF.md, NVIDIA H100 80GB HBM3 at 700 W) in barrier-separated radix-2
+// sweeps; the FFTs are now register-resident radix-8 stages with
+// conflict-free shared-memory exchanges and 16 warps per SM in f64, 32 in
+// f32. For 2 x 30 s at 2^18 the passes now run 1.3-1.7x above their floor
+// (0.052 / 0.071 / 0.049 ms in f64), so they are bound by memory (L2 at
+// this size); the kernel takes 0.178 ms (f64), 0.103 (f32) and 0.049
+// (i16) against 0.61, 0.33 and 0.20 ms for the plain version on cuFFT
+// (PERF.md). fourstep.cuh holds that engine, the passes' shared
+// halves and rows_multiply (shared with conv_blocks.cu), and says why
+// tensor cores are not used; this file holds the signal gather, the
+// valid-hop scatter and the peak. All twiddles and H come from host
+// float64 tables (rounded to float for the f32 modes); no fast-math
+// sin/cos is used.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,79 +92,111 @@ struct Geometry {
   long long pairs_per_ch;
   long long pair0;       // first global pair of this chunk
   int m;                 // kernel order M
-  Split sp;              // B = N1 * N2 and the tile widths
 };
 
 // Pass 1: forward column FFTs of pair (pair0 + blockIdx.y), columns
-// [blockIdx.x * tc, +tc), gathered straight from the signal.
-template <typename T, typename IO>
-__global__ void __launch_bounds__(kThreads)
+// [blockIdx.x * kW, +kW), gathered straight from the signal.
+template <typename T, typename IO, class S>
+__global__ void __launch_bounds__(Cols<T, S>::kThreads, Cols<T, S>::kMinBlocks)
 cols_forward(const IO* __restrict__ x, Cx<T>* __restrict__ scratch,
              const Cx<T>* __restrict__ tw4, const Cx<T>* __restrict__ w1,
              Geometry g) {
+  using C = Cols<T, S>;
+  using F = typename C::F;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n1 = 1 << g.sp.log_n1, n2 = 1 << g.sp.log_n2, tc = g.sp.tc;
-  Cx<T>* tws = reinterpret_cast<Cx<T>*>(smem_raw);
-  Cx<T>* s = tws + (n1 >> 1);
+  Cx<T>* tab = reinterpret_cast<Cx<T>*>(smem_raw);
+  const int tid = threadIdx.x, w = tid & (C::kW - 1), t = tid >> C::kLogW;
   const long long p = g.pair0 + blockIdx.y;
   const long long ch = p / g.pairs_per_ch;
   const long long k = p % g.pairs_per_ch;
-  const int c0 = blockIdx.x * tc;
+  const int c0 = blockIdx.x * C::kW;
   const IO* xc = x + ch * g.n_in;
   const long long s0 = 2 * k * g.hop - g.left;
   const long long s1 = s0 + g.hop;
 
-  load_table(tws, w1, n1 >> 1);
-  for (int i = threadIdx.x; i < tc * n1; i += blockDim.x) {
-    const int w = i % tc, row = i / tc;
-    const long long n = (long long)row * n2 + c0 + w;
+  F::build_table(tab, w1, tid, C::kThreads);
+  Cx<T> v[F::kE];
+#pragma unroll
+  for (int m = 0; m < F::kE; ++m) {
+    const long long n = (long long)F::template pos<0>(t, m) * S::kN2 + c0 + w;
     const long long i0 = s0 + n, i1 = s1 + n;
-    Cx<T> v;
-    v.re = (i0 >= 0 && i0 < g.n_in) ? load_sample<T>(xc[i0]) : T(0);
-    v.im = (i1 >= 0 && i1 < g.n_in) ? load_sample<T>(xc[i1]) : T(0);
-    s[row * tc + w] = v;
+    v[m].re = (i0 >= 0 && i0 < g.n_in) ? load_sample<T>(xc[i0]) : T(0);
+    v[m].im = (i1 >= 0 && i1 < g.n_in) ? load_sample<T>(xc[i1]) : T(0);
   }
-  cols_forward_store(s, tws, scratch + (size_t)blockIdx.y * ((size_t)n1 * n2),
-                     tw4, g.sp, c0);
+  cols_forward_store<T, S>(v, tab + F::kTableElems + w, F::kGlobalTw ? w1 : tab,
+                           scratch + (size_t)blockIdx.y * S::kB, tw4, c0, t, w);
 }
 
 // Pass 3: inverse column FFTs, valid-position write-out, fused peak.
-template <typename T, typename IO>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, typename IO, class S>
+__global__ void __launch_bounds__(Cols<T, S>::kThreads, Cols<T, S>::kMinBlocks)
 cols_inverse(const Cx<T>* __restrict__ scratch, IO* __restrict__ y,
              unsigned int* __restrict__ peak_bits,
              const Cx<T>* __restrict__ tw4, const Cx<T>* __restrict__ w1,
              Geometry g) {
+  using C = Cols<T, S>;
+  using F = typename C::F;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n1 = 1 << g.sp.log_n1, n2 = 1 << g.sp.log_n2, tc = g.sp.tc;
-  Cx<T>* tws = reinterpret_cast<Cx<T>*>(smem_raw);
-  Cx<T>* s = tws + (n1 >> 1);
+  Cx<T>* tab = reinterpret_cast<Cx<T>*>(smem_raw);
+  const int tid = threadIdx.x, w = tid & (C::kW - 1), t = tid >> C::kLogW;
   const long long p = g.pair0 + blockIdx.y;
   const long long ch = p / g.pairs_per_ch;
   const long long k = p % g.pairs_per_ch;
-  const int c0 = blockIdx.x * tc;
+  const int c0 = blockIdx.x * C::kW;
 
-  load_table(tws, w1, n1 >> 1);
-  cols_inverse_load(s, tws, scratch + (size_t)blockIdx.y * ((size_t)n1 * n2),
-                    tw4, g.sp, c0);
+  F::build_table(tab, w1, tid, C::kThreads);
+  Cx<T> v[F::kE];
+  cols_inverse_load<T, S>(v, tab + F::kTableElems + w, F::kGlobalTw ? w1 : tab,
+                          scratch + (size_t)blockIdx.y * S::kB, tw4, c0, t, w);
 
-  const T scale = T(1) / static_cast<T>((long long)n1 * n2);
+  const T scale = T(1) / static_cast<T>(S::kB);
   IO* yc = y + ch * g.out_len;
   const long long base0 = 2 * k * g.hop - g.m;  // out index of position n
   float pk = 0.0f;
-  for (int i = threadIdx.x; i < tc * n1; i += blockDim.x) {
-    const int w = i % tc, row = i / tc;
-    const long long n = (long long)row * n2 + c0 + w;
+#pragma unroll
+  for (int m = 0; m < F::kE; ++m) {
+    const long long n = (long long)F::template pos<0>(t, m) * S::kN2 + c0 + w;
     if (n < g.m) continue;
     const long long o0 = base0 + n, o1 = o0 + g.hop;
-    const Cx<T> v = s[row * tc + w];
-    if (o0 < g.out_len) pk = fmaxf(pk, store_sample(yc + o0, v.re * scale));
-    if (o1 < g.out_len) pk = fmaxf(pk, store_sample(yc + o1, v.im * scale));
+    if (o0 < g.out_len) pk = fmaxf(pk, store_sample(yc + o0, v[m].re * scale));
+    if (o1 < g.out_len) pk = fmaxf(pk, store_sample(yc + o1, v[m].im * scale));
   }
-  for (int off = 16; off > 0; off >>= 1)
-    pk = fmaxf(pk, __shfl_xor_sync(0xffffffffu, pk, off));
+  // Warp maximum; a CTA narrower than a warp (the smallest sides) reduces
+  // over its own lanes only.
+  constexpr int kLanes = C::kThreads < 32 ? C::kThreads : 32;
+  constexpr unsigned kMask = kLanes == 32 ? 0xffffffffu : (1u << kLanes) - 1u;
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    pk = fmaxf(pk, __shfl_xor_sync(kMask, pk, off));
   if ((threadIdx.x & 31) == 0 && pk > 0.0f)
     atomicMax(peak_bits, __float_as_uint(pk));
+}
+
+template <typename T, typename IO, class S>
+int run_split(const IO* x, IO* y, unsigned int* pk, const Cx<T>* H,
+              const Cx<T>* tw4, const Cx<T>* w1, const Cx<T>* w2, Cx<T>* sc,
+              Geometry g, long long total, long long chunk_pairs,
+              cudaStream_t stream) {
+  using C = Cols<T, S>;
+  using RW = Rows<T, S>;
+  cudaError_t err =
+      allow_smem<T, S>(cols_forward<T, IO, S>, cols_inverse<T, IO, S>);
+  if (err != cudaSuccess) return err;
+  for (long long p0 = 0; p0 < total; p0 += chunk_pairs) {
+    const long long np = (total - p0) < chunk_pairs ? (total - p0) : chunk_pairs;
+    g.pair0 = p0;
+    const dim3 grid_cols(S::kN2 / C::kW, (unsigned)np);
+    const dim3 grid_rows(S::kN1 / RW::kR, (unsigned)np);
+    cols_forward<T, IO, S><<<grid_cols, C::kThreads, C::kSmem, stream>>>(
+        x, sc, tw4, w1, g);
+    rows_multiply<T, S><<<grid_rows, RW::kThreads, RW::kSmem, stream>>>(
+        sc, H, w2);
+    cols_inverse<T, IO, S><<<grid_cols, C::kThreads, C::kSmem, stream>>>(
+        sc, y, pk, tw4, w1, g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaGetLastError();
 }
 
 template <typename T, typename IO>
@@ -166,40 +205,22 @@ int run(const IO* x, IO* y, float* peak, const void* H, const void* tw4,
         long long n_in, long long out_len, long long left, int m, int log_n1,
         int log_n2, long long chunk_pairs, cudaStream_t stream) {
   Geometry g;
-  g.sp = make_split(log_n1, log_n2);
   g.n_in = n_in;
   g.out_len = out_len;
   g.left = left;
   g.hop = (1LL << (log_n1 + log_n2)) - m;
   g.m = m;
+  g.pair0 = 0;
   const long long nb = (out_len + g.hop - 1) / g.hop;
   g.pairs_per_ch = (nb + 1) / 2;
   const long long total = g.pairs_per_ch * channels;
-
-  cudaError_t err = allow_smem<T>(cols_forward<T, IO>, cols_inverse<T, IO>, g.sp);
-  if (err != cudaSuccess) return err;
-  const size_t sm_cols = cols_smem<T>(g.sp), sm_rows = rows_smem<T>(g.sp);
-  const Cx<T>* Hc = static_cast<const Cx<T>*>(H);
-  const Cx<T>* tw4c = static_cast<const Cx<T>*>(tw4);
-  const Cx<T>* w1c = static_cast<const Cx<T>*>(w1);
-  const Cx<T>* w2c = static_cast<const Cx<T>*>(w2);
-  Cx<T>* sc = static_cast<Cx<T>*>(scratch);
-  unsigned int* pk = reinterpret_cast<unsigned int*>(peak);
-  for (long long p0 = 0; p0 < total; p0 += chunk_pairs) {
-    const long long np = (total - p0) < chunk_pairs ? (total - p0) : chunk_pairs;
-    g.pair0 = p0;
-    const dim3 grid_cols((1 << log_n2) / g.sp.tc, (unsigned)np);
-    const dim3 grid_rows((1 << log_n1) / g.sp.tr, (unsigned)np);
-    cols_forward<T, IO><<<grid_cols, kThreads, sm_cols, stream>>>(
-        x, sc, tw4c, w1c, g);
-    rows_multiply<T><<<grid_rows, kThreads, sm_rows, stream>>>(sc, Hc, w2c,
-                                                               g.sp);
-    cols_inverse<T, IO><<<grid_cols, kThreads, sm_cols, stream>>>(
-        sc, y, pk, tw4c, w1c, g);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaGetLastError();
+  return with_split(log_n1, log_n2, [&](auto sp) {
+    return run_split<T, IO, decltype(sp)>(
+        x, y, reinterpret_cast<unsigned int*>(peak),
+        static_cast<const Cx<T>*>(H), static_cast<const Cx<T>*>(tw4),
+        static_cast<const Cx<T>*>(w1), static_cast<const Cx<T>*>(w2),
+        static_cast<Cx<T>*>(scratch), g, total, chunk_pairs, stream);
+  });
 }
 
 }  // namespace

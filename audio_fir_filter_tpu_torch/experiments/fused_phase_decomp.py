@@ -64,10 +64,10 @@ def phases(blocks: torch.Tensor, H: torch.Tensor, variant: str) -> torch.Tensor:
 
 
 def tile_columns(b: int) -> int:
-    """tc, the columns per tile of passes 1 and 3 (``fourstep.cuh``
-    make_split: 8192 elements per tile)."""
+    """tc, the columns per CTA of passes 1 and 3 (``fourstep.cuh``
+    ``Split::kTc``: 8 up to N1 = 512, fewer above, at most N2)."""
     l1, l2 = sf.split(b)
-    return min(1 << l2, 8192 >> l1)
+    return min(1 << l2, max(1, min(8, 4096 >> l1)))
 
 
 def _tiles_contiguous(s: torch.Tensor, tc: int) -> torch.Tensor:

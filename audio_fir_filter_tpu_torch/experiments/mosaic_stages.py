@@ -13,10 +13,14 @@ in, digit-reversed out for DIF):
 - ``noop``: load and store the tile (the floor of every tile case);
 - ``r2 d=..``, ``r4 d=..``: one radix-2 / radix-4 DIF stage at block
   length d = 128, 16, 4, 1 (``fft_core.dif_stage``);
-- ``fwd r2``: the shipped 512-point chain (``fourstep.cuh`` ``fft_dif``,
-  nine radix-2 sweeps); ``fwd r4``: ``fft_core.dif_plan(512)``; ``fwd r8``:
+- ``fwd r2``: the 512-point chain the kernels shipped before their
+  register redesign (``probe_stages.cu`` ``fft_dif``, nine radix-2 sweeps),
+  the baseline; ``fwd r4``: ``fft_core.dif_plan(512)``; ``fwd r8``:
   ``fft_core.dif_plan_r8(512)``; ``inv ..``: their DIT inverses, * 1/512;
-  ``fwd+inv``: the shipped forward then inverse sweeps;
+  ``fwd+inv``: the radix-2 forward then inverse sweeps;
+- ``fwd reg``: the shipped forward FFT (``fourstep.cuh`` ``Fft<T, 9>``:
+  8 registers per thread, 3 radix-8 stages, 2 exchanges), whose output
+  order is the radix-2 chain's (plain version: ``fwd r2``'s);
 - ``shuffle e=..``: the roll stages ``subroll r2`` / ``laneroll r2``
   (``roll_r2_stage``): y = x[i] + x[i + e] where (i // e) is even, else
   (x[i - e] - x[i]) * w[v] with w[v] = exp(-2 pi i v / 64) for column v,
@@ -52,7 +56,7 @@ CASES = {
     **{f"r4 d={d}": (2, d) for d in (128, 16, 4, 1)},
     "fwd r2": (3, 0), "fwd r4": (4, 0), "fwd r8": (5, 0),
     "inv r2": (6, 0), "inv r4": (7, 0), "inv r8": (8, 0),
-    "fwd+inv": (9, 0),
+    "fwd+inv": (9, 0), "fwd reg": (13, 0),
     "shuffle e=8": (10, 8), "shuffle e=1": (10, 1),
     "transpose 32": (11, 32), "transpose 64": (11, 64),
     "cmul": (12, 0),
@@ -265,6 +269,8 @@ def reference(z: torch.Tensor, name: str) -> torch.Tensor:
         return z.clone()
     if kcase in (1, 2):
         return dif_stage(z, name[:2], param)
+    if name == "fwd reg":
+        return fft_dif_rows(z, plans["r2"])
     if name.startswith("fwd "):
         return fft_dif_rows(z, plans[name[4:]])
     if name.startswith("inv "):

@@ -20,7 +20,9 @@ double-float arithmetic is not carried over; the port ships native f64):
 Each has a plain version written with ``torch.fft`` on the [N1, N2] view
 in the kernel's bit-reversed order; the plain K3(K2(K1(x))) is
 ``ops.conv_blocks.reference``. The TPU's XLA transpose and XLA pass rows
-have no counterpart: nothing on the card transposes.
+have no counterpart: nothing on the card transposes. On the card the
+probe's library instantiates B = 2^16 .. 2^20 only (the sweep's shapes; a
+short build); another B raises, the plain versions take any.
 
 The segment kernel's passes (``cols_forward``, ``rows_multiply``,
 ``cols_inverse`` in ``csrc/segment_filter.cu``) are timed from

@@ -89,6 +89,31 @@ def _launch(blocks: torch.Tensor, plan) -> torch.Tensor:
     return out
 
 
+_PASSES = ("pass 1", "pass 2", "pass 3")
+_OCC_KEYS = ("ctas_per_sm", "threads", "smem_bytes", "registers", "local_bytes")
+
+
+def occupancy(b: int, precision: str) -> dict:
+    """The kernel's three passes at block size ``b`` on the current card:
+    per pass the CTAs an SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    threads per CTA, dynamic shared bytes, registers and local-memory
+    (stack and spill) bytes per thread. Builds the kernel; needs a card."""
+    import ctypes
+
+    from . import _build
+
+    fn = _build.library("conv_blocks").lowcut_conv_blocks_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 15)()
+    l1, l2 = sf.split(b)
+    rc = fn(l1, l2, int(precision == sf.HIGH), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return {p: dict(zip(_OCC_KEYS, out[5 * i : 5 * i + 5]))
+            for i, p in enumerate(_PASSES)}
+
+
 def reference(blocks: torch.Tensor, plan) -> torch.Tensor:
     """The plain PyTorch version, same contract: ``rfft(blocks) *
     natural_spectrum(H)`` then ``irfft(n=B)``, in float64 for a ``high``

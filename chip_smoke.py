@@ -14,14 +14,18 @@ result line):
 3. segment kernel vs its plain PyTorch version on the card at the main
    path's shapes (2 channels, 30 s of audio, B = 2^18): high (M = 38,400 at
    96 kHz), fast (M = 38,400) and i16 (M = 17,640 at 44.1 kHz) — error,
-   peak, launch count and median CUDA-event times;
+   peak, launch count and median device times (CUDA events around each
+   call queued behind a sleep kernel, ``experiments/_probe.event_ms``);
 4. a float64 direct-convolution oracle on excerpts (head, a block seam,
    tail) of the phase-3 kernel outputs; then kernel vs plain version at
-   small edge shapes (B 256-2048, 1-3 channels, halo-extended input);
+   small edge shapes (B 256-2048, 1-3 channels, halo-extended input), and
+   at every B = 2^k, k = 2 .. 26 (2 channels, 3 taps up to B = 256, 201
+   above), so every compiled side 2^1 .. 2^13 runs as N1 and as N2;
 5. block-convolution kernel vs its plain version at the block path's shape
    for the same 2 x 30 s at 96 kHz (M = 38,400, B = 2^18: blocks
-   [28, 2^18]), f64 and f32, over full blocks — error, launch count and
-   median CUDA-event times; then small edge shapes (B 256-2048, nb 2-6)
+   [28, 2^18]), f64 and f32, over full blocks — error, launch count,
+   median device times as in phase 3 and the passes' occupancy; then small
+   edge shapes (B 256-2048, nb 2-6), every B = 2^k, k = 2 .. 26 (nb = 2),
    and the whole block path at T = 201, B = 256;
 6. the main path through the CLI entry point, in-process: (a) a 10-minute
    96 kHz stereo 24-bit WAV with a metadata chunk (auto -> high, several
@@ -58,6 +62,7 @@ import contextlib
 import hashlib
 import io
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -164,10 +169,35 @@ def phase_build() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(_build.FAMILIES)} "
           f"sources in parallel (nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name in _build.FAMILIES:
-        log = (_build.BUILD_DIR / f"{name}.ptxas.log").read_text()
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}:", line.strip())
+        print(f"  ptxas {name}: "
+              + _ptxas_summary((_build.BUILD_DIR / f"{name}.ptxas.log").read_text()))
+
+
+def _ptxas_summary(log: str) -> str:
+    """One line from ``ptxas -v``: kernel count, register range, and each
+    kernel with a stack frame (local memory: spills or an array the
+    compiler could not keep in registers)."""
+    kernels = []
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            kernels.append([m[1], 0, 0, 0])
+        elif kernels and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)):
+            kernels[-1][2:] = [int(m[1]), int(m[2])]
+        elif kernels and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[-1][1] = int(m[1])
+    if not kernels:
+        return "no kernels"
+    regs = [k[1] for k in kernels]
+    local = []
+    for name, _, stack, spill in kernels:
+        if stack:
+            m = re.search(r"\d+([a-z_]+)I(\w)\w*?SplitILi(\d+)ELi(\d+)E", name)
+            short = f"{m[1]}<{m[2]}, 2^{m[3]} x 2^{m[4]}>" if m else name[:48]
+            local.append(f"{short} {stack}/{spill}")
+    return (f"{len(kernels)} kernels, {min(regs)}-{max(regs)} registers; "
+            f"{len(local)} with a stack frame (stack/spill bytes)"
+            + (": " + ", ".join(local) if local else ""))
 
 
 def _probe_modules() -> tuple:
@@ -203,18 +233,11 @@ def _counts() -> dict:
 
 
 def _time_ms(fn, reps: int = 10) -> float:
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    """Median device ms of ``fn()``, each call queued behind a sleep kernel
+    so the events do not count the wrapper's host latency."""
+    from audio_fir_filter_tpu_torch.experiments._probe import event_ms
+
+    return float(event_ms(fn, reps))
 
 
 MODES = (
@@ -336,6 +359,51 @@ def phase_edge_shapes() -> None:
     torch.cuda.synchronize()
     print("edge shapes (B 256-2048, C 1-3, halos): kernel vs plain "
           + ", ".join(f"{k} {v:.4f} LSB" for k, v in worst.items()))
+    phase_every_side()
+
+
+def _edge_taps(b: int) -> np.ndarray:
+    from audio_fir_filter_tpu_torch.ops import kernel_design as kd
+
+    return kd.highpass_taps(0.05, 2 if b <= 256 else 200)
+
+
+def phase_every_side() -> None:
+    """The segment kernel at every B = 2^k, k = 2 .. 26, in all three
+    modes: 2 channels of 2 hops + 1 frames (two pairs per channel)."""
+    from audio_fir_filter_tpu_torch.ops import overlap_save as osv
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+
+    rng = np.random.default_rng(SEED + 5)
+    worst = {}
+    for k in range(2, 27):
+        b = 1 << k
+        check(sf.qualifies(len(_edge_taps(b)), b), f"B=2^{k} does not qualify")
+        for mode, precision, _, i16, bits in MODES:
+            plan = osv.make_plan(_edge_taps(b), precision, b, "cuda")
+            n = 2 * plan.hop + 1
+            x = rng.uniform(-0.9, 0.9, (2, n)).astype(np.float32)
+            if i16:
+                x = np.rint(x * 30000).astype(np.int16)
+            xd = torch.from_numpy(x).cuda()
+            yk, pk = sf.segment_filter(xd, plan, plan.mo2, n, i16_io=i16)
+            yp, _ = sf.reference(xd, plan, plan.mo2, n, i16_io=i16)
+            a = yk.cpu().numpy().astype(np.float64)
+            r = yp.cpu().numpy().astype(np.float64)
+            del xd, yk, yp
+            top = float(np.abs(a).max())
+            check(abs(float(pk) - top) <= 1e-6 * max(top, 1e-30),
+                  f"{mode} B=2^{k}: peak {float(pk)} != {top}")
+            if i16:
+                a, r = a / 32768.0, r / 32768.0
+            err = scaled_lsb_error(a, r, bits)
+            check(err <= 1.0, f"{mode} B=2^{k}: kernel vs plain {err} LSB@{bits}")
+            if err >= worst.get(mode, (-1.0, 0))[0]:
+                worst[mode] = (err, k)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print("every side (B = 2^2 .. 2^26, C = 2): kernel vs plain, worst "
+          + ", ".join(f"{m} {e:.4f} LSB (B=2^{k})" for m, (e, k) in worst.items()))
 
 
 CONV_MODES = (
@@ -389,6 +457,19 @@ def phase_conv_kernels() -> dict:
               f"{plain_ms:.3f} ms")
         results[mode] = {"max_abs_err": err_abs, "ms": min(ms, ms2),
                          "plain_ms": plain_ms}
+        occ = cb.occupancy(plan.block_size, precision)
+        print(f"conv kernel {mode} occupancy at B = 2^18 (CTAs per SM, "
+              "threads, shared bytes, registers, local bytes): "
+              + "; ".join(f"{p} {o['ctas_per_sm']}, {o['threads']}, "
+                          f"{o['smem_bytes']}, {o['registers']}, "
+                          f"{o['local_bytes']}" for p, o in occ.items()))
+        # A thread's 8 complex registers in local memory (an index the
+        # compiler could not fold) made every pass 2.3x slower once.
+        v_bytes = 8 * 2 * (8 if precision == "high" else 4)
+        for p, o in occ.items():
+            check(o["local_bytes"] < v_bytes,
+                  f"conv {mode} {p}: {o['local_bytes']} local bytes per thread, "
+                  f"the FFT's {v_bytes} register bytes left the registers")
     return results
 
 
@@ -428,6 +509,35 @@ def phase_conv_edge_shapes() -> None:
     torch.cuda.synchronize()
     print("conv edge shapes (B 256-2048, nb 2-6; block path T=201 B=256): "
           + ", ".join(f"{k} {v:.4f} LSB" for k, v in worst.items()))
+    phase_conv_every_side()
+
+
+def phase_conv_every_side() -> None:
+    """The block kernel at every B = 2^k, k = 2 .. 26, nb = 2, both modes,
+    all B positions."""
+    from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
+    from audio_fir_filter_tpu_torch.ops import overlap_save as osv
+
+    rng = np.random.default_rng(SEED + 6)
+    worst = {}
+    for k in range(2, 27):
+        b = 1 << k
+        x = torch.from_numpy(rng.uniform(-1, 1, (2, b)).astype(np.float32)).cuda()
+        for mode, precision, bits in CONV_MODES:
+            plan = osv.make_plan(_edge_taps(b), precision, b, "cuda",
+                                 engine="fourstep")
+            a = cb.conv_real_blocks(x, plan).cpu().numpy().astype(np.float64)
+            r = cb.reference(x, plan).cpu().numpy().astype(np.float64)
+            check(bool(np.isfinite(a).all()), f"conv {mode} B=2^{k}: non-finite")
+            err = scaled_lsb_error(a, r, bits)
+            check(err <= 1.0, f"conv {mode} B=2^{k}: {err} LSB@{bits}")
+            if err >= worst.get(mode, (-1.0, 0))[0]:
+                worst[mode] = (err, k)
+        del x
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print("conv every side (B = 2^2 .. 2^26, nb = 2): kernel vs plain, worst "
+          + ", ".join(f"{m} {e:.4f} LSB (B=2^{k})" for m, (e, k) in worst.items()))
 
 
 def _cli_rc(args: list[str]) -> tuple[int, str]:

@@ -242,7 +242,7 @@ def test_ablations_have_their_defined_outputs(b):
     no_tr, full = fpd.phases(x, H, "no_tr"), fpd.phases(x, H, "full")
     assert no_tr.shape == full.shape and bool(torch.isfinite(no_tr).all())
     # The contiguous tile store is a different layout only where a tile
-    # holds fewer than N2 columns (B > 8192).
+    # holds fewer than N2 columns (tc = 8 from N2 = 16 up).
     assert torch.equal(no_tr, full) == (fpd.tile_columns(b) == n2)
 
 

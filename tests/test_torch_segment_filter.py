@@ -121,6 +121,22 @@ def test_natural_spectrum_is_rfft_of_reversed_taps():
                                    np.fft.rfft(h), rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("b", [4, 256, 2048])
+def test_natural_spectrum_reuses_its_cached_index(b):
+    """The gather index is made once per (B, device) and kept there; the
+    values are the uncached gather's."""
+    taps = kd.highpass_taps(0.05, 2 if b < 256 else 128)
+    H = osv.make_plan(taps, osv.HIGH, b, CPU).H
+    idx = torch.from_numpy(sf._natural_index(b))
+    assert torch.equal(sf.natural_spectrum(H), H.reshape(-1)[idx])
+    first = sf._natural_index_on(b, H.device)
+    assert sf._natural_index_on(b, H.device) is first
+    hits = sf._natural_index_on.cache_info().hits
+    sf.natural_spectrum(H.to(torch.complex64))
+    assert sf._natural_index_on.cache_info().hits == hits + 1
+    assert first.device == H.device and first.dtype == torch.int64
+
+
 def test_qualifier_and_framing():
     assert sf.segment_framing(38400, 1 << 18) == ((1 << 18) - 38400, 19200)
     assert sf.segment_framing(17640, 1 << 18) == ((1 << 18) - 17640, 8820)
