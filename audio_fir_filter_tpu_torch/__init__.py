@@ -12,24 +12,28 @@ to find:
 - ``models/``: the five windowed-sinc filter families and their plans.
 - ``pipeline/``: segment streaming, the per-file pipeline, the pipelined
   batch and its resume manifest.
+- ``audio/``, ``native/``, ``utils/``: the host layer (containers, the PCM
+  codec and its native build, synthesis; errors, options, progress), the
+  port's own copies of the JAX package's modules of the same names;
+  ``ops/oracle.py`` likewise.
 - ``cli.py``: the ``lowcut`` command line (both scenarios), plus
-  ``--device``.
+  ``--device`` and ``--profile``.
+- ``bench.py``: the bench contract (``python3 -m
+  audio_fir_filter_tpu_torch.bench``), one JSON result line.
 
-The port imports ``torch`` and never ``jax``. It reuses the JAX package's
-host-only modules that never import JAX: ``audio`` (containers, codec,
-synthesis), ``native.pcm_codec`` and ``utils.errors`` / ``.options`` /
-``.progress``.
+The port imports ``torch`` and never ``jax``, and nothing of the JAX
+package.
 """
 
 __version__ = "0.1.0"
 
-from audio_fir_filter_tpu.utils.errors import (  # noqa: F401
+from .utils.errors import (  # noqa: F401
     DiskerrorError,
     FileExists,
     FileNotFound,
     StopNoError,
     UsageError,
 )
-from audio_fir_filter_tpu.utils.options import FilterOptions  # noqa: F401
+from .utils.options import FilterOptions  # noqa: F401
 
 from .utils.device import resolve_device  # noqa: F401

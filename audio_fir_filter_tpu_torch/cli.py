@@ -12,21 +12,26 @@ message; it never falls back to the CPU.
 ``pease`` and ``stockham`` run the generic block path, one block kernel
 for all three.
 
+``--profile DIR``: a ``torch.profiler`` trace of the whole run (CPU
+activity, plus CUDA activity on the card), written to
+``DIR/trace.json`` (Chrome trace format) when the run ends, on the error
+path too.
+
 Not ported yet, each refused with a UsageError naming its ROADMAP.md item:
-``--mesh`` and the multi-host flags; ``--profile``.
+``--mesh`` and the multi-host flags.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from pathlib import Path
 
-from audio_fir_filter_tpu.utils.errors import (DiskerrorError, FileExists,
-                                               FileNotFound, StopNoError,
-                                               UsageError)
-from audio_fir_filter_tpu.utils.options import FilterOptions
+from .utils.errors import (DiskerrorError, FileExists, FileNotFound,
+                           StopNoError, UsageError)
+from .utils.options import FilterOptions
 
 HELP_TEXT = """\
 Applies low-cut (high-pass) FIR filter to WAVE or AIFF file.
@@ -105,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process-id", type=int, default=None, metavar="I",
                    help="Multi-host: this process's index (0-based).")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="Write a profiler trace of the run to DIR.")
+                   help="Write a torch.profiler trace of the run to "
+                        "DIR/trace.json (Chrome trace format).")
     p.add_argument("--json-metrics", action="store_true",
                    help="Print per-stage timing metrics as JSON to stderr.")
     p.add_argument("--resume", action="store_true",
@@ -130,8 +136,31 @@ def _reject_unported(args) -> None:
                         ("--process-id", args.process_id)):
         if value is not None:
             raise _not_ported(flag, "parallel/ over NCCL")
-    if args.profile:
-        raise _not_ported("--profile", "--profile through torch.profiler")
+
+
+TRACE_NAME = "trace.json"
+
+
+@contextlib.contextmanager
+def _profiled(directory: str, device: str):
+    """A ``torch.profiler`` trace of the body: CPU activity always, CUDA
+    activity when the device is the card. Exported to
+    ``directory/trace.json`` when the body ends, whether or not it
+    raised."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda" and torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(directory)
+    out.mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield
+    finally:
+        prof.export_chrome_trace(str(out / TRACE_NAME))
 
 
 def _options_from_args(args) -> FilterOptions:
@@ -182,6 +211,15 @@ def run(argv=None) -> None:
     if opts.verbose:
         print(f"Using {opts.resolved_num_threads()} threads.")
 
+    if not args.profile:
+        return _run_scenario(args, opts)
+    with _profiled(args.profile, args.device):
+        if opts.verbose:
+            print(f"Profiling to {args.profile} (torch.profiler trace).")
+        _run_scenario(args, opts)
+
+
+def _run_scenario(args, opts: FilterOptions) -> None:
     paths = [Path(s) for s in args.paths]
     # The pipeline is imported in each branch, after its usage checks, so
     # --help and usage errors pay no torch start-up.

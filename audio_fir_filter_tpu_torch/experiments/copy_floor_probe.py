@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import roofline
 from . import _probe
 
 SHAPE = (2, 512, 512)
@@ -104,8 +105,10 @@ def run(device="cuda", reps: int = 5) -> dict:
         f"of {reps}); plain x.clone(): {plain_ms:.4f} ms",
         ["variant", "ms", "GB/s moved", "Gsamples/s"], rows)
     return {"lines": lines, "times": times,
-            "kernels": {"probe_copy_floor": {"ms": times["tr"],
-                                             "plain_ms": plain_ms}}}
+            # The plain version is one library call, x.clone().
+            "kernels": {"probe_copy_floor": {
+                "ms": times["tr"], "plain_ms": plain_ms, "library_ms": plain_ms,
+                **roofline.bound(2 * x.numel() * 4, 0, "f32")}}}
 
 
 def main() -> None:

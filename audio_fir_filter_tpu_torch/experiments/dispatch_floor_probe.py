@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import roofline
 from . import _probe
 
 BLOCK = (2, 512, 512)
@@ -105,8 +106,11 @@ def run(device="cuda", reps: int = 5, k: int = 200) -> dict:
         "launch floor and passthrough (host: wall per launch over "
         f"{k} launches, one sync; device: CUDA events, median of {reps})",
         ["case", "host us/launch", "device us", "GB/s r+w"], rows)
+    # The plain version is one library call, x.clone().
     return {"lines": lines,
-            "kernels": {"probe_passthru": {"ms": ms, "plain_ms": plain_ms}}}
+            "kernels": {"probe_passthru": {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms,
+                **roofline.bound(2 * xs[8].numel() * 4, 0, "f32")}}}
 
 
 def main() -> None:

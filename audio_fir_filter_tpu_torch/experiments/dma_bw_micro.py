@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import roofline
 from . import _probe
 
 COLS = 512
@@ -143,8 +144,11 @@ def run(device="cuda", reps: int = 5) -> dict:
         f"staged copies, {STEPS} steps x rows x {COLS} f32 (CUDA events, "
         f"median of {reps}); plain x.clone() at rows 2048: {plain_ms:.4f} ms",
         ["mode", "rows", "split", "ms", "GB/s"], rows_out)
+    # The plain version is one library call, x.clone().
     return {"lines": lines,
-            "kernels": {"probe_bw": {"ms": ms, "plain_ms": plain_ms}}}
+            "kernels": {"probe_bw": {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms,
+                **roofline.bound(moved_bytes("both", STEPS, 2048), 0, "f32")}}}
 
 
 def main() -> None:

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import roofline
 from ..ops import segment_filter as sf
 from . import _probe
 from . import pallas_micro as pm
@@ -144,7 +145,11 @@ def run(device="cuda", reps: int = 5) -> dict:
             f" passes 1+3 arithmetic (ac_only - copy) "
             f"{t['ac_only'] - t['copy']:.4f} ms, strided layout (full - no_tr) "
             f"{t['full'] - t['no_tr']:.4f} ms, copy floor {t['copy']:.4f} ms")
-        kernels[f"probe_phases_{mode}"] = {"ms": t["full"], "plain_ms": plain}
+        # No one PyTorch call convolves blocks circularly: library_ms null.
+        kernels[f"probe_phases_{mode}"] = {
+            "ms": t["full"], "plain_ms": plain, "library_ms": None,
+            **roofline.bound(2 * x.numel() * 4,
+                             roofline.fft_conv_flops(BLOCK, NBLOCKS), mode)}
     head = _probe.table(
         f"phase ablations, {NBLOCKS} real blocks at B = 2^18, 38,401 random "
         f"taps (CUDA events, median of {reps})",

@@ -38,10 +38,12 @@ The XLA calibration rows of the TPU probe have no counterpart here.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
+from ..ops import roofline
 from ..ops import segment_filter as sf
 from . import _probe
 
@@ -329,7 +331,13 @@ def run_cases(names, stage_fn, device, reps: int, row: str, key_case: str,
         ms = _probe.event_ms(lambda: stage_fn(z, key_case), reps)
         plain = _probe.event_ms(lambda: reference(z, key_case), reps)
         rows.append([mode, f"plain {key_case}", plain, _probe.gbps(nbytes, plain)])
-        kernels[f"{row}_{mode}"] = {"ms": ms, "plain_ms": plain}
+        # A complex FFT of N points along each row, 5 N log2 N flops; its
+        # output is in bit-reversed order, which no one PyTorch call gives
+        # (library_ms null).
+        flops = 5.0 * N * math.log2(N) * (z.numel() // N)
+        kernels[f"{row}_{mode}"] = {"ms": ms, "plain_ms": plain,
+                                    "library_ms": None,
+                                    **roofline.bound(nbytes, flops, mode)}
     lines = _probe.table(title + f" (CUDA events, median of {reps}; GB/s "
                          "counts one read and one write of the blocks)",
                          ["mode", "case", "ms", "GB/s"], rows)

@@ -37,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from ..ops import roofline
 from ..ops import segment_filter as sf
 from . import _probe
 
@@ -299,6 +300,7 @@ def segment_passes(device, precision: str, reps: int = 5) -> dict:
 
 
 def run(device="cuda", reps: int = 5) -> dict:
+
     dev = _probe.card(device)
     rows, kernels = [], {}
     for b, nb in SHAPES:
@@ -325,8 +327,12 @@ def run(device="cuda", reps: int = 5) -> dict:
             rows.append([f"block {mode} B=2^{b.bit_length() - 1} nb={nb}",
                          "K1+K2+K3", total, f"plain {plain:.4f} ms"])
             if b == SHAPES[0][0]:
-                kernels[f"probe_passes_{mode}"] = {"ms": total,
-                                                   "plain_ms": plain}
+                # K3(K2(K1)) is the block convolution; no one PyTorch call
+                # convolves blocks circularly: library_ms null.
+                kernels[f"probe_passes_{mode}"] = {
+                    "ms": total, "plain_ms": plain, "library_ms": None,
+                    **roofline.bound(2 * x.numel() * 4,
+                                     roofline.fft_conv_flops(b, nb), mode)}
     seg = []
     for precision, mode in (("fast", "f32"), ("high", "f64")):
         us = segment_passes(dev, precision, reps)

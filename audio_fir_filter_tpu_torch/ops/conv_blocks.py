@@ -71,9 +71,7 @@ def _launch(blocks: torch.Tensor, plan) -> torch.Tensor:
     if H.shape != sf.split_shape(b) or not H.is_contiguous():
         raise ValueError(f"plan spectrum must be contiguous {sf.split_shape(b)}")
     tw4, w1, w2 = sf.kernel_tables(b, H.dtype, dev)
-    pairs = nb // 2
-    chunk = max(1, min(pairs, sf._MAX_GRID_Y,
-                       sf._SCRATCH_BYTES // (b * H.element_size())))
+    chunk = sf.scratch_pairs(nb // 2, b, H.element_size())
     scratch = torch.empty((chunk, b), dtype=H.dtype, device=dev)
     l1, l2 = sf.split(b)
     fn = getattr(_build.library("conv_blocks"), f"lowcut_conv_blocks_{mode}")

@@ -143,15 +143,17 @@ def _plan(taps: np.ndarray, precision: str, b: int, device, engine: str,
 
 
 def make_plan(taps: np.ndarray, precision: str = HIGH, block_size: int = 0,
-              device="cuda", engine: str = "auto") -> OverlapSavePlan:
+              device="cuda", engine: str = "auto",
+              conv_chunk: int = CONV_CHUNK) -> OverlapSavePlan:
     """Plan for odd-length float64 ``taps`` on ``device`` (raises if a CUDA
     device is asked for and there is no card) with ``engine`` resolved by
-    :func:`resolve_engine`."""
+    :func:`resolve_engine` and ``conv_chunk`` blocks per block-kernel call
+    on the block path."""
     taps = np.asarray(taps, dtype=np.float64)
     if len(taps) % 2 != 1:
         raise ValueError("taps must have odd length (type-I linear phase)")
     return _plan(taps, precision, choose_block_size(len(taps), block_size),
-                 device, engine, CONV_CHUNK)
+                 device, engine, conv_chunk)
 
 
 def plan_from_jax(jax_plan, taps: np.ndarray, device) -> OverlapSavePlan:
@@ -165,6 +167,53 @@ def plan_from_jax(jax_plan, taps: np.ndarray, device) -> OverlapSavePlan:
                          f"{jax_plan.num_taps}")
     return _plan(taps, jax_plan.precision, jax_plan.block_size, device,
                  jax_plan.engine, jax_plan.conv_chunk)
+
+
+# ------------------------------------------------ launches and device bytes
+
+def block_count(plan: OverlapSavePlan, out_len: int) -> int:
+    """Blocks per channel on the block path for ``out_len`` output frames:
+    one per hop, rounded up to even so pairs never straddle a channel."""
+    nb = -(-out_len // plan.hop)
+    return nb + (nb & 1)
+
+
+def launches_per_call(plan: OverlapSavePlan, channels: int, out_len: int) -> int:
+    """Kernel launches of one filter call of ``channels`` x ``out_len``:
+    one on the segment path (the kernel walks its scratch chunks itself),
+    one per ``conv_chunk`` blocks on the block path."""
+    if channels == 0 or out_len == 0:
+        return 0
+    if plan.engine == PALLAS:
+        return 1
+    return -(-channels * block_count(plan, out_len) // plan.conv_chunk)
+
+
+def chunk_hops(plan: OverlapSavePlan) -> int:
+    """Hops of output that one scratch chunk (segment path) or one launch
+    (block path) covers, channel-major from the first hop of channel 0:
+    the first seam between two chunks, if the call has more than one."""
+    elt = plan.H.element_size()
+    if plan.engine == PALLAS:
+        return 2 * sf.scratch_pairs(sf._MAX_GRID_Y, plan.block_size, elt)
+    return plan.conv_chunk
+
+
+def call_bytes(plan: OverlapSavePlan, channels: int, out_len: int) -> int:
+    """Device bytes one :func:`extended_filter` call of ``out_len`` frames
+    per channel holds at its peak: the float32 input with its halo, the
+    scratch of one launch, and the output (segment path) or, on the block
+    path, the overlapped blocks, the kernel's outputs until they are
+    joined, and the joined hops (the output)."""
+    b, elt = plan.block_size, plan.H.element_size()
+    x = 4 * channels * (out_len + plan.m)
+    if plan.engine == PALLAS:
+        pairs = channels * ((-(-out_len // plan.hop) + 1) // 2)
+        return x + 4 * channels * out_len + sf.scratch_pairs(pairs, b, elt) * b * elt
+    nb = block_count(plan, out_len)
+    blocks = 4 * channels * nb * b
+    scratch = sf.scratch_pairs(plan.conv_chunk // 2, b, elt) * b * elt
+    return x + 2 * blocks + 4 * channels * nb * plan.hop + scratch
 
 
 # ------------------------------------------------------------------ filters
@@ -192,8 +241,7 @@ def _block_filter_peak(x: torch.Tensor, plan: OverlapSavePlan, left: int,
     and the peak over those ``out_len`` samples only."""
     c = x.shape[0]
     b, m, hop = plan.block_size, plan.m, plan.hop
-    nb = -(-out_len // hop)
-    nb += nb & 1  # even per channel: pairs never straddle a channel
+    nb = block_count(plan, out_len)
     if c == 0 or nb == 0:
         y = x.new_empty((c, out_len))
         return y, x.new_zeros(())

@@ -57,6 +57,14 @@ def split_shape(b: int) -> tuple[int, int]:
     return 1 << l1, 1 << l2
 
 
+def scratch_pairs(pairs: int, b: int, element_size: int) -> int:
+    """Pairs of B-point blocks one launch's scratch holds for ``pairs``
+    pairs of complex ``element_size``-byte values: all of them, at most the
+    grid's y limit and :data:`_SCRATCH_BYTES`. The kernel walks the pairs
+    in chunks of this many."""
+    return max(1, min(pairs, _MAX_GRID_Y, _SCRATCH_BYTES // (b * element_size)))
+
+
 def segment_framing(m: int, b: int) -> tuple[int, int]:
     """(hop, left pad) for kernel order M at block size B: hop = B - M,
     left = Mo2. Block j's window starts at j * hop of the padded signal and
@@ -205,8 +213,7 @@ def _launch(x, plan, left, out_len, i16_io):
     tw4, w1, w2 = kernel_tables(b, H.dtype, dev)
     hop = b - m
     pairs = c * ((-(-out_len // hop) + 1) // 2)
-    chunk = max(1, min(pairs, _MAX_GRID_Y,
-                       _SCRATCH_BYTES // (b * H.element_size())))
+    chunk = scratch_pairs(pairs, b, H.element_size())
     scratch = torch.empty((chunk, b), dtype=H.dtype, device=dev)
     l1, l2 = split(b)
     fn = getattr(_build.library("segment_filter"),

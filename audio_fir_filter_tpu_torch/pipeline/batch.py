@@ -38,11 +38,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from audio_fir_filter_tpu import audio
-from audio_fir_filter_tpu.utils.errors import FileExists
-from audio_fir_filter_tpu.utils.options import FilterOptions
-
+from .. import audio
 from ..models import make_model
+from ..utils.errors import FileExists
+from ..utils.options import FilterOptions
 from .process_file import design_plan, filter_and_normalize
 
 # Files decoded ahead of the device. Bounded so a batch of hour-long files

@@ -20,14 +20,13 @@ import time
 
 import numpy as np
 
-from audio_fir_filter_tpu import audio
-from audio_fir_filter_tpu.audio.file import _scale_common
-from audio_fir_filter_tpu.audio.format import Encoding
-from audio_fir_filter_tpu.utils.options import FilterOptions, resolve_precision
-from audio_fir_filter_tpu.utils.progress import ProgressBar
-
+from .. import audio
+from ..audio.file import _scale_common
+from ..audio.format import Encoding
 from ..models import make_model
 from ..ops import segment_filter as sf
+from ..utils.options import FilterOptions, resolve_precision
+from ..utils.progress import ProgressBar
 from .stream import filter_array_streamed, filter_array_streamed_i16
 
 

@@ -50,10 +50,28 @@ result line):
    against its plain version (bitwise for the copies, the stated tolerance
    otherwise), then, with the launch counters zeroed before and read
    after, each probe's sweep through its ``run`` entry point, printing the
-   decomposition tables; every probe kernel must have launched.
+   decomposition tables; every probe kernel must have launched;
+10. the bench contract as a user runs it, ``python3 -m
+   audio_fir_filter_tpu_torch.bench`` in subprocesses: ``--fidelity
+   --roofline --all --reps 3``, then ``--engine fourstep --reps 3 --e2e
+   --e2e-hours 0.05`` (a 3-minute file through the whole tool). Each exits
+   0 with one JSON stdout line (value > 0), the fidelity gate passes,
+   every timed run's output was held against the float64 oracle at the
+   timed shape, and each run's launch report names its kernels; the
+   reports are printed;
+11. ``--profile DIR`` through the CLI on file (a), counters zeroed before
+   and read after: the Chrome trace exists and names the segment kernel's
+   passes (``cols_forward``, ``rows_multiply``, ``cols_inverse``).
 
-Output: the phase reports, then a JSON line of per-kernel results, then
-the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
+The build phase also checks that the native PCM codec loaded (its g++
+build), so the host codec of phases 6-11 is the native one.
+
+Output: the phase reports, then a JSON line of per-kernel results (each
+row with its launches on its path, error against its plain version, its
+time, the plain version's, its roofline bound from ``ops/roofline``, and
+the one PyTorch library call's time where there is one), then the last
+line {"ok": true, "device": {...}}. Imports nothing of JAX and nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -75,6 +93,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+
+# The ulp-relative gate: max |a - b| in LSBs at ``bits``, relative to the
+# output's binade above full scale.
+from audio_fir_filter_tpu_torch.ops.oracle import (  # noqa: E402
+    max_scaled_lsb_error as scaled_lsb_error)
 
 SEED = 20261016
 SEGMENT_SOURCE = "audio_fir_filter_tpu_torch/csrc/segment_filter.cu"
@@ -112,20 +135,6 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise SmokeFailure(msg)
-
-
-def lsb(bits: int) -> float:
-    return 2.0 ** -(bits - 1)
-
-
-def scaled_lsb_error(a, b, bits: int) -> float:
-    """Max |a - b| in LSBs at ``bits``, relative to the output's binade
-    above full scale (the ulp-relative high-precision gate)."""
-    a = np.asarray(a, np.float64)
-    b = np.asarray(b, np.float64)
-    peak = float(np.max(np.abs(b)))
-    scale = 2.0 ** np.floor(np.log2(peak)) if peak > 1.0 else 1.0
-    return float(np.max(np.abs(a - b))) / lsb(bits) / max(1.0, scale)
 
 
 def oracle_excerpt(x: np.ndarray, taps: np.ndarray, i0: int, length: int):
@@ -171,6 +180,12 @@ def phase_build() -> None:
     for name in _build.FAMILIES:
         print(f"  ptxas {name}: "
               + _ptxas_summary((_build.BUILD_DIR / f"{name}.ptxas.log").read_text()))
+    from audio_fir_filter_tpu_torch.native import pcm_codec
+
+    check(pcm_codec.native_loaded(),
+          "the native PCM codec did not load (its g++ build failed): the "
+          "host codec fell back to NumPy")
+    print(f"native PCM codec: loaded from {pcm_codec._SO}")
 
 
 def _ptxas_summary(log: str) -> str:
@@ -259,6 +274,7 @@ def _signal(fs: float, seconds: float, rng) -> np.ndarray:
 
 def phase_kernels() -> dict:
     from audio_fir_filter_tpu_torch.models import LowCut
+    from audio_fir_filter_tpu_torch.ops import roofline
     from audio_fir_filter_tpu_torch.ops import segment_filter as sf
 
     rng = np.random.default_rng(SEED)
@@ -316,9 +332,45 @@ def phase_kernels() -> dict:
                     yk_h[c, i0 : i0 + EXCERPT], want, bits))
         print(f"oracle {mode}: head/seam/tail excerpts {worst:.4f} LSB@{bits}")
         check(worst <= 1.0, f"{mode}: oracle excerpt {worst} LSB@{bits} > 1")
+        lib_ms = None
+        if not i16:
+            lib_ms, lib_err = _library_conv_ms(xd, taps, precision, yp)
+            print(f"library {mode}: F.conv1d (cuDNN, TF32 off) {lib_ms:.3f} ms, "
+                  f"max abs diff from the plain version {lib_err:.3e}")
+        w = roofline.work(plan, 2, n, n, sample_bytes=2 if i16 else 4)
         results[mode] = {"max_abs_err": err_abs, "ms": min(ms, ms2),
-                         "plain_ms": plain_ms}
+                         "plain_ms": plain_ms, **roofline.bound_keys(w),
+                         "library_ms": lib_ms}
     return results
+
+
+def _library_conv_ms(xd: torch.Tensor, taps, precision: str,
+                     plain: torch.Tensor) -> tuple[float, float]:
+    """(ms, max |y - plain|) of the one PyTorch call that computes the
+    segment filter's function: ``F.conv1d`` (a cross-correlation with the
+    taps, zero 'same' padding) in the plan's precision, with TF32 off. A
+    first call slower than 2 s is its own time (host clock, synchronized);
+    otherwise the median of 3 timed calls."""
+    import torch.nn.functional as F
+
+    dt = torch.float64 if precision == "high" else torch.float32
+    x = xd.to(dt)[:, None, :]
+    w = torch.from_numpy(np.asarray(taps, np.float64)).to(xd.device, dt)[None, None]
+    pad = (len(taps) - 1) // 2
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        y = F.conv1d(x, w, padding=pad)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        err = float((y[:, 0].double() - plain.double()).abs().max())
+        del y
+        ms = first * 1e3 if first > 2.0 else _time_ms(
+            lambda: F.conv1d(x, w, padding=pad), reps=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return ms, err
 
 
 def phase_edge_shapes() -> None:
@@ -419,6 +471,7 @@ def phase_conv_kernels() -> dict:
     positions compared (the aliased head [0, M) included)."""
     from audio_fir_filter_tpu_torch.models import LowCut
     from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
+    from audio_fir_filter_tpu_torch.ops import roofline
     from audio_fir_filter_tpu_torch.ops import segment_filter as sf
 
     rng = np.random.default_rng(SEED + 3)
@@ -455,8 +508,13 @@ def phase_conv_kernels() -> dict:
               f"over full blocks (head [0, M) {head:.4f}; max abs "
               f"{err_abs:.3e}); kernel {ms:.3f}/{ms2:.3f} ms, plain (cuFFT) "
               f"{plain_ms:.3f} ms")
+        # No one PyTorch call convolves blocks circularly: library_ms null.
+        w = roofline.roofline(
+            2 * blocks.numel() * 4,
+            roofline.fft_conv_flops(plan.block_size, blocks.shape[0]), precision)
         results[mode] = {"max_abs_err": err_abs, "ms": min(ms, ms2),
-                         "plain_ms": plain_ms}
+                         "plain_ms": plain_ms, **roofline.bound_keys(w),
+                         "library_ms": None}
         occ = cb.occupancy(plan.block_size, precision)
         print(f"conv kernel {mode} occupancy at B = 2^18 (CTAs per SM, "
               "threads, shared bytes, registers, local bytes): "
@@ -559,7 +617,7 @@ def _run_cli(args: list[str]) -> dict:
 
 
 def _file_excerpts(inp, out, taps, seam, bits) -> float:
-    from audio_fir_filter_tpu import audio
+    from audio_fir_filter_tpu_torch import audio
 
     din, dout = audio.read_audio(inp), audio.read_audio(out)
     check(dout.samples.shape == din.samples.shape, "output shape differs")
@@ -595,7 +653,7 @@ def _print_stages(tag: str, m: dict, card: str) -> None:
 
 
 def _check_metadata(inp: Path, out: Path, tag: str) -> None:
-    from audio_fir_filter_tpu import audio
+    from audio_fir_filter_tpu_torch import audio
 
     cin = audio.read_audio(inp).container
     cout = audio.read_audio(out).container
@@ -611,9 +669,9 @@ def make_inputs(tmp: Path) -> dict:
     """(a) 10 min 96 kHz stereo 24-bit WAV with a metadata chunk, (b) 5 min
     44.1 kHz stereo 16-bit WAV, (c) a loud 10 s 44.1 kHz 16-bit WAV that
     saturates, (d) 1 min 48 kHz stereo 24-bit AIFF."""
-    from audio_fir_filter_tpu.audio import Encoding
-    from audio_fir_filter_tpu.audio.chunks import Chunk
-    from audio_fir_filter_tpu.audio.synth import create_audio_file
+    from audio_fir_filter_tpu_torch.audio import Encoding
+    from audio_fir_filter_tpu_torch.audio.chunks import Chunk
+    from audio_fir_filter_tpu_torch.audio.synth import create_audio_file
 
     rng = np.random.default_rng(SEED + 1)
     meta = Chunk(b"bext", bytes(range(256)) * 3 + b"lowcut chip smoke")
@@ -643,7 +701,7 @@ def _out(path: Path, tag: str) -> Path:
 def phase_main_path(card: str, files: dict) -> dict:
     """Scenario 1 on (a), (b), (c) with the default engine. Returns the
     path's launch counts and, per file, (output, wall s, launches)."""
-    from audio_fir_filter_tpu import audio
+    from audio_fir_filter_tpu_torch import audio
     from audio_fir_filter_tpu_torch.models import LowCut
     from audio_fir_filter_tpu_torch.pipeline.stream import default_segment_len
 
@@ -753,7 +811,7 @@ def _add(*counts: dict) -> dict:
 
 def phase_batch(card: str, files: dict, single: dict, tmp: Path) -> None:
     """The batch scenario with ``--resume`` (default filter settings)."""
-    from audio_fir_filter_tpu import audio
+    from audio_fir_filter_tpu_torch import audio
     from audio_fir_filter_tpu_torch.pipeline.manifest import MANIFEST_NAME
 
     out_d = _out(files["d"], "out")
@@ -857,6 +915,86 @@ def phase_probes(card: str) -> dict:
             for name, (src, rep) in PROBE_ROWS.items()}
 
 
+BENCH_RUNS = (
+    # arguments, the kernels each run must report launched
+    (["--fidelity", "--roofline", "--all", "--reps", "3"],
+     ("segment_filter_f64", "segment_filter_i16")),
+    (["--engine", "fourstep", "--reps", "3", "--e2e", "--e2e-hours", "0.05"],
+     ("conv_blocks_f64",)),
+)
+
+
+def phase_bench(card: str) -> None:
+    """Phase 10: ``python3 -m audio_fir_filter_tpu_torch.bench`` as a user
+    runs it, in subprocesses: each exits 0 with one JSON line on stdout
+    (the four keys, value > 0), the fidelity gate passes, and each run's
+    own launch report shows its kernels launched (counts of that run)."""
+    for args, kernels in BENCH_RUNS:
+        cmd = [sys.executable, "-m", "audio_fir_filter_tpu_torch.bench", *args]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        print(f"--- bench {' '.join(args)} ({wall:.1f} s, exit {r.returncode}) "
+              f"on {card}:")
+        print(r.stderr.rstrip())
+        check(r.returncode == 0, f"bench {' '.join(args)} exited {r.returncode}")
+        lines = r.stdout.strip().splitlines()
+        check(len(lines) == 1, f"bench printed {len(lines)} stdout lines")
+        result = json.loads(lines[0])
+        print(f"bench result: {lines[0]}")
+        check(set(result) == {"metric", "value", "unit", "vs_baseline"},
+              f"bench result keys {sorted(result)}")
+        check(result["value"] > 0, f"bench value {result['value']}")
+        if "--fidelity" in args:
+            check(r.stderr.count("PASS") == 2 and "FAIL" not in r.stderr,
+                  "bench fidelity gate did not pass twice")
+        # Every timed run's warm-up output against the float64 oracle at
+        # the timed shape (the bench raises on a miss).
+        timed = r.stderr.count("launched ")
+        checked = r.stderr.count("(head/seam/tail excerpts)")
+        check(timed > 0 and checked == timed,
+              f"bench {' '.join(args)}: {checked} of {timed} timed runs held "
+              "against the oracle")
+        launched = {}
+        for name, n in re.findall(r"(\w+) launched (\d+) times", r.stderr):
+            launched[name] = launched.get(name, 0) + int(n)
+        for k in kernels:
+            check(launched.get(k, 0) > 0, f"bench {' '.join(args)}: {k} "
+                  f"never launched ({launched})")
+
+
+def phase_profile(card: str, files: dict, tmp: Path) -> None:
+    """Phase 11: file (a) through the CLI with ``--profile DIR``, counters
+    zeroed before and read after; the Chrome trace must exist and name the
+    segment kernel's three passes."""
+    prof = tmp / "profile"
+    out = _out(files["a"], "prof")
+    _zero_counts()
+    t0 = time.perf_counter()
+    rc, err = _cli_rc([str(files["a"]), str(out), "--profile", str(prof), "-v"])
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    check(rc == 0, f"--profile run exited {rc}: {err}")
+    check(counts["segment_filter_f64"] > 0,
+          f"--profile run launched no segment kernel: {counts}")
+    trace = prof / "trace.json"
+    check(trace.is_file(), f"no trace at {trace}")
+    events = json.loads(trace.read_text())["traceEvents"]
+    per_pass = {}
+    for e in events:
+        for p in ("cols_forward", "rows_multiply", "cols_inverse"):
+            if p in e.get("name", "") and e.get("cat") == "kernel":
+                n, us = per_pass.get(p, (0, 0.0))
+                per_pass[p] = (n + 1, us + float(e.get("dur", 0.0)))
+    check(set(per_pass) == {"cols_forward", "rows_multiply", "cols_inverse"},
+          f"trace names {sorted(per_pass)} of the segment kernel's passes")
+    print(f"--profile (a) on {card}: {wall:.1f} s with the profiler, trace "
+          f"{trace.stat().st_size / 1e6:.1f} MB, {len(events)} events; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; kernel passes (count, "
+          f"device us): {per_pass}")
+
+
 def main() -> int:
     env = phase_environment()
     phase_build()
@@ -870,7 +1008,9 @@ def main() -> int:
         main_path = phase_main_path(env["card"], files)
         four = phase_fourstep(env["card"], files)
         phase_batch(env["card"], files, main_path["single"], tmp)
-    probes = phase_probes(env["card"])
+        probes = phase_probes(env["card"])
+        phase_bench(env["card"])
+        phase_profile(env["card"], files, tmp)
     rows = [{"name": f"segment_filter_{mode}", "route": "cuda",
              "source": SEGMENT_SOURCE, "replaces": SEGMENT_REPLACES,
              "launches": main_path["counts"][f"segment_filter_{mode}"],

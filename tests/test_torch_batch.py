@@ -14,17 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from audio_fir_filter_tpu import audio
-from audio_fir_filter_tpu.audio import Encoding
-from audio_fir_filter_tpu.audio.synth import create_audio_file
-from audio_fir_filter_tpu.utils.errors import FileExists, FileNotFound
-from audio_fir_filter_tpu.utils.options import FilterOptions
+from audio_fir_filter_tpu_torch import audio
+from audio_fir_filter_tpu_torch.audio import Encoding
+from audio_fir_filter_tpu_torch.audio.synth import create_audio_file
 from audio_fir_filter_tpu_torch.cli import main
 from audio_fir_filter_tpu_torch.pipeline import process_file
 from audio_fir_filter_tpu_torch.pipeline.batch import run_batch
 from audio_fir_filter_tpu_torch.pipeline.manifest import (MANIFEST_NAME,
                                                           BatchManifest,
                                                           options_fingerprint)
+from audio_fir_filter_tpu_torch.utils.errors import FileExists, FileNotFound
+from audio_fir_filter_tpu_torch.utils.options import FilterOptions
 
 FS = 8000.0
 CPU = "cpu"

@@ -20,19 +20,19 @@ import numpy as np
 import pytest
 import torch
 
-from audio_fir_filter_tpu import audio
-from audio_fir_filter_tpu.audio import Encoding
-from audio_fir_filter_tpu.audio.synth import create_audio_file
 from audio_fir_filter_tpu.ops import kernel_design as kd
 from audio_fir_filter_tpu.ops import oracle
 from audio_fir_filter_tpu.ops import overlap_save as josv
-from audio_fir_filter_tpu.utils.options import FilterOptions
+from audio_fir_filter_tpu_torch import audio
+from audio_fir_filter_tpu_torch.audio import Encoding
+from audio_fir_filter_tpu_torch.audio.synth import create_audio_file
 from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
 from audio_fir_filter_tpu_torch.ops import overlap_save as osv
 from audio_fir_filter_tpu_torch.pipeline import (default_segment_len,
                                                  filter_array_streamed,
                                                  filter_array_streamed_i16,
                                                  process_file)
+from audio_fir_filter_tpu_torch.utils.options import FilterOptions
 
 # The module (the package re-exports its function of the same name).
 pf_mod = importlib.import_module("audio_fir_filter_tpu_torch.pipeline.process_file")

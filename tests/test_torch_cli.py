@@ -1,8 +1,9 @@
 """The port's CLI (``audio_fir_filter_tpu_torch.cli``): the JAX package's
 scenario checks, error texts and exit codes for two paths, ``--device``,
-``--engine``, and a UsageError for each path that is not ported yet (the
-batch scenario has its own tests in test_torch_batch.py)."""
+``--engine``, ``--profile``, and a UsageError for each path that is not
+ported yet (the batch scenario has its own tests in test_torch_batch.py)."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -11,11 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from audio_fir_filter_tpu import audio
-from audio_fir_filter_tpu.audio import Encoding
-from audio_fir_filter_tpu.audio.synth import create_audio_file
 from audio_fir_filter_tpu.ops import kernel_design as kd
 from audio_fir_filter_tpu.ops import oracle
+from audio_fir_filter_tpu_torch import audio
+from audio_fir_filter_tpu_torch.audio import Encoding
+from audio_fir_filter_tpu_torch.audio.synth import create_audio_file
 from audio_fir_filter_tpu_torch.cli import main
 
 FS = 8000.0
@@ -96,13 +97,38 @@ def test_cuda_without_card_exits_1(tmp_path, capsys, monkeypatch):
     (["--coordinator", "localhost:1234"], "parallel/ over NCCL"),
     (["--num-processes", "2"], "parallel/ over NCCL"),
     (["--process-id", "0"], "parallel/ over NCCL"),
-    (["--profile", "trace_dir"], "torch.profiler"),
 ])
 def test_unported_paths_raise_usage_error(tmp_path, capsys, extra, item):
     p = wav(tmp_path, "a.wav")
     assert main([str(p), str(tmp_path / "b.wav"), *extra, *CPU]) == 1
     err = capsys.readouterr().err
     assert "not ported" in err and item in err and "ROADMAP.md" in err
+
+
+def _trace_names(path):
+    trace = json.loads(path.read_text())
+    return {e.get("name", "") for e in trace["traceEvents"]}
+
+
+@pytest.mark.parametrize("engine", ["auto", "fourstep"])
+def test_profile_writes_a_chrome_trace(tmp_path, capsys, engine):
+    p = wav(tmp_path, "a.wav")
+    prof = tmp_path / "prof" / "run1"
+    assert main([str(p), str(tmp_path / "b.wav"), "--profile", str(prof),
+                 "--engine", engine, "-v", *CPU]) == 0
+    assert f"Profiling to {prof} (torch.profiler trace)." in capsys.readouterr().out
+    names = _trace_names(prof / "trace.json")
+    # The plain versions' FFTs ran inside the traced window.
+    assert any("fft" in n for n in names), sorted(names)[:20]
+
+
+def test_profile_trace_is_written_on_the_error_path(tmp_path, capsys):
+    prof = tmp_path / "prof"
+    argv = [str(tmp_path / "missing.wav"), str(tmp_path / "b.wav"),
+            "--profile", str(prof), *CPU]
+    assert main(argv) == 1
+    assert "not found" in capsys.readouterr().err.lower()
+    assert "traceEvents" in json.loads((prof / "trace.json").read_text())
 
 
 @pytest.mark.parametrize("engine", ["auto", "pallas", "fourstep", "pease",

@@ -1,10 +1,13 @@
-"""The port never imports JAX: with ``jax`` blocked in ``sys.modules``, a
-fresh interpreter imports the package (and chip_smoke.py), filters a tiny
-WAV on the CPU through ``process_file``, runs ``--engine fourstep``
-through the CLI and a ``--resume`` batch, and imports every probe module
-of ``audio_fir_filter_tpu_torch.experiments`` and runs one plain version
-of each."""
+"""The port imports neither JAX nor the JAX package: with ``jax`` and
+``audio_fir_filter_tpu`` blocked in ``sys.modules``, a fresh interpreter
+imports the package (and chip_smoke.py), filters a tiny WAV on the CPU
+through ``process_file``, runs ``--engine fourstep`` and ``--profile``
+through the CLI and a ``--resume`` batch, runs the bench at a tiny size,
+and imports every probe module of ``audio_fir_filter_tpu_torch.experiments``
+and runs one plain version of each. A static check reads every file of the
+port and chip_smoke.py for an import of the JAX package."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -14,15 +17,16 @@ REPO = Path(__file__).resolve().parent.parent
 SCRIPT = r"""
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["audio_fir_filter_tpu"] = None   # and so does the JAX package
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import audio_fir_filter_tpu_torch
 import audio_fir_filter_tpu_torch.cli
 import chip_smoke
-from audio_fir_filter_tpu.audio import Encoding, read_audio
-from audio_fir_filter_tpu.audio.synth import create_audio_file
-from audio_fir_filter_tpu.utils.options import FilterOptions
+from audio_fir_filter_tpu_torch.audio import Encoding, read_audio
+from audio_fir_filter_tpu_torch.audio.synth import create_audio_file
 from audio_fir_filter_tpu_torch.pipeline import process_file
+from audio_fir_filter_tpu_torch.utils.options import FilterOptions
 
 x = np.random.default_rng(0).uniform(-0.5, 0.5, (2, 3000)).astype(np.float32)
 create_audio_file(sys.argv[2] + "/in.wav", x, 8000.0, encoding=Encoding.PCM_24)
@@ -40,6 +44,14 @@ create_audio_file(d + "/in2.wav", x[:, :2000], 8000.0, encoding=Encoding.PCM_16)
 assert main([d + "/in.wav", d + "/in2.wav", d + "/batch", "--resume", *cpu]) == 0
 assert read_audio(d + "/batch/in2.wav").samples.shape == (2, 2000)
 assert (read_audio(d + "/batch/in.wav").samples == y).all()
+assert main([d + "/in.wav", d + "/prof.wav", "--profile", d + "/prof", *cpu]) == 0
+import os
+assert os.path.isfile(d + "/prof/trace.json")
+from audio_fir_filter_tpu_torch import bench
+assert bench.main(["--device", "cpu", "--block-size", "1024", "--freq", "100",
+                   "--slope", "200", "--sample-rate", "8000",
+                   "--segment-blocks", "2", "--reps", "1", "--fidelity",
+                   "--roofline"]) == 0
 import importlib
 import pkgutil
 import torch
@@ -57,8 +69,8 @@ mods["fused_phase_decomp"].phases(torch.zeros((2, 256)),
 mods["copy_floor_probe"].copy_floor(torch.zeros((1, 2, 512, 512)), "tr")
 mods["dma_bw_micro"].bw(torch.zeros((1, 16, 512)), "in")
 mods["dispatch_floor_probe"].passthru(torch.zeros((1, 2, 512, 512)))
-assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules
-               if sys.modules[k] is not None)
+assert not any(k.split(".")[0] in ("jax", "audio_fir_filter_tpu")
+               for k in sys.modules if sys.modules[k] is not None)
 print("NO_JAX_OK")
 """
 
@@ -68,3 +80,25 @@ def test_port_runs_without_jax(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "NO_JAX_OK" in r.stdout
+
+
+# ``from audio_fir_filter_tpu <name>`` / ``from audio_fir_filter_tpu.x`` /
+# ``import audio_fir_filter_tpu`` — the JAX package, not ``_torch``.
+_JAX_PACKAGE_IMPORT = re.compile(
+    r"^\s*(from\s+audio_fir_filter_tpu(\s|\.)|import\s+audio_fir_filter_tpu(\s|\.|,|$))",
+    re.M)
+
+
+def test_no_file_of_the_port_imports_the_jax_package():
+    files = [*sorted((REPO / "audio_fir_filter_tpu_torch").rglob("*.py")),
+             REPO / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = [f"{f.relative_to(REPO)}:{m.group(0).strip()}"
+           for f in files for m in _JAX_PACKAGE_IMPORT.finditer(f.read_text())]
+    assert bad == []
+    # The pattern does catch the JAX package and leaves the port alone.
+    assert _JAX_PACKAGE_IMPORT.search("from audio_fir_filter_tpu import audio")
+    assert _JAX_PACKAGE_IMPORT.search("    from audio_fir_filter_tpu.ops import x")
+    assert _JAX_PACKAGE_IMPORT.search("import audio_fir_filter_tpu.audio")
+    assert not _JAX_PACKAGE_IMPORT.search("from audio_fir_filter_tpu_torch import a")
+    assert not _JAX_PACKAGE_IMPORT.search("import audio_fir_filter_tpu_torch")

@@ -12,18 +12,19 @@ or 1 LSB @ 16-bit of each other.
 import numpy as np
 import pytest
 
-from audio_fir_filter_tpu import audio
-from audio_fir_filter_tpu.audio import Encoding
-from audio_fir_filter_tpu.audio.chunks import Chunk
-from audio_fir_filter_tpu.audio.synth import create_audio_file
 from audio_fir_filter_tpu.ops import kernel_design as kd
 from audio_fir_filter_tpu.ops import oracle
 from audio_fir_filter_tpu.pipeline import process_file as jax_process_file
-from audio_fir_filter_tpu.utils.options import FilterOptions
+from audio_fir_filter_tpu.utils.options import FilterOptions as JaxOptions
+from audio_fir_filter_tpu_torch import audio
+from audio_fir_filter_tpu_torch.audio import Encoding
+from audio_fir_filter_tpu_torch.audio.chunks import Chunk
+from audio_fir_filter_tpu_torch.audio.synth import create_audio_file
 from audio_fir_filter_tpu_torch.ops import overlap_save as osv
 from audio_fir_filter_tpu_torch.pipeline import (filter_array_streamed,
                                                  filter_array_streamed_i16,
                                                  process_file)
+from audio_fir_filter_tpu_torch.utils.options import FilterOptions
 
 from util import high_tol_lsb24
 
@@ -41,12 +42,13 @@ def make_input(tmp_path, name, encoding, frames=6000, scale=0.5, extra=()):
 
 
 def run_both(tmp_path, src, **opts):
-    o = FilterOptions(**{**OPTS, **opts})
+    kw = {**OPTS, **opts}
     outs, metrics = [], []
-    for tag, fn, kw in (("torch", process_file, {"device": "cpu"}),
-                        ("jax", jax_process_file, {})):
+    for tag, fn, o, dev in (("torch", process_file, FilterOptions(**kw),
+                             {"device": "cpu"}),
+                            ("jax", jax_process_file, JaxOptions(**kw), {})):
         out = tmp_path / f"{tag}_{src.name}"
-        metrics.append(fn(src, out, o, show_progress=False, **kw))
+        metrics.append(fn(src, out, o, show_progress=False, **dev))
         outs.append(audio.read_audio(out))
     return outs, metrics
 
