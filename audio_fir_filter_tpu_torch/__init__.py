@@ -12,12 +12,15 @@ to find:
 - ``models/``: the five windowed-sinc filter families and their plans.
 - ``pipeline/``: segment streaming, the per-file pipeline, the pipelined
   batch and its resume manifest.
+- ``parallel/``: the ("data", "time") mesh of ``(rank, device)`` cells,
+  halo-exchange sharded filtering over ``torch.distributed``, the
+  multi-process runtime helpers and the scaling harness.
 - ``audio/``, ``native/``, ``utils/``: the host layer (containers, the PCM
   codec and its native build, synthesis; errors, options, progress), the
   port's own copies of the JAX package's modules of the same names;
   ``ops/oracle.py`` likewise.
-- ``cli.py``: the ``lowcut`` command line (both scenarios), plus
-  ``--device`` and ``--profile``.
+- ``cli.py``: the ``lowcut`` command line (both scenarios, ``--mesh`` and
+  the multi-process flags), plus ``--device`` and ``--profile``.
 - ``bench.py``: the bench contract (``python3 -m
   audio_fir_filter_tpu_torch.bench``), one JSON result line.
 

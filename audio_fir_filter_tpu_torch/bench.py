@@ -2,7 +2,7 @@
 device, in samples/s.
 
     python3 -m audio_fir_filter_tpu_torch.bench [--device {cuda,cpu}] \\
-        [--roofline] [--fidelity] [--all] [--e2e [--e2e-hours H]] [...]
+        [--roofline] [--fidelity] [--all] [--scaling] [--e2e [--e2e-hours H]] [...]
 
 Counterpart of the JAX package's root ``bench.py``, with its flags plus
 ``--device`` (default ``cuda``) and its stdout contract: exactly one JSON
@@ -15,9 +15,16 @@ workload (BASELINE.md: 96 kHz stereo, the default low-cut ``-f 15 -s 10``,
 M = 38,400, ``high`` precision) and ``vs_baseline`` = value / (100 x
 realtime) (1.92e7 samples/s for stereo 96 kHz). Every report goes to
 stderr. Exit 1 with no result line when the device is missing (``cuda``
-with no card: there is no fallback to the CPU) or for ``--scaling``
-(``parallel/`` is not ported); exit 1 after the result line when the
-fidelity gate fails.
+with no card: there is no fallback to the CPU) or when a part of
+``--scaling`` fails; exit 1 after the result line when the fidelity gate
+fails.
+
+``--scaling`` adds the report of ``parallel/scaling_bench`` (stderr): the
+halo-cost model across cards at the rates this run measured on its device
+(``high`` and ``fast``; the link rates are public figures, and the rows a
+model: one card cannot show a speed-up), the real ``sharded_filter`` at 1,
+2, 4 and 8 cells in this process, and the halo exchange measured between
+two processes of a gloo group.
 
 The headline times ``--reps`` calls of ``ops/overlap_save.extended_filter``
 on a halo-extended segment made on the device, between two CUDA events
@@ -465,8 +472,26 @@ BASELINE_CONFIGS = [
     ("cfg5 stereo 192k, f=15 s=10 (sharded kernel)", 15.0, 10.0, 192000.0, 2),
 ]
 
-SCALING_REFUSAL = ("--scaling is not ported to the PyTorch package yet "
-                   "(ROADMAP.md, Queue 1 item 3: parallel/ over NCCL).")
+def scaling_report(args, res: dict, dev: torch.device, card: str) -> None:
+    """``--scaling``: the per-cell rates of both precisions measured in
+    this run (the headline call's, and one more call at the other
+    precision), then the report of ``parallel/scaling_bench``. Raises if a
+    part fails, so the run prints no result line."""
+    from .parallel import scaling_bench
+
+    other = osv.FAST if args.precision == osv.HIGH else osv.HIGH
+    log(f"--- scaling: the {other} rate of the same workload")
+    r = measure_chip_rate(args.freq, args.slope, args.sample_rate,
+                          args.channels, other, args.block_size,
+                          args.segment_blocks, args.reps, args.engine,
+                          args.conv_chunk, dev)
+    rates = {args.precision: res["rate"], other: r["rate"]}
+    workload = scaling_bench.Workload(args.freq, args.slope, args.sample_rate,
+                                      args.channels, args.block_size)
+    log("--- scaling report")
+    scaling_bench.run_scaling(
+        log, workload, {p: rates[p] for p in (osv.HIGH, osv.FAST)}, dev,
+        card if dev.type == "cuda" else device_name(dev))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -496,7 +521,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fidelity", action="store_true",
                     help="run the fidelity gate (stderr; exit 1 if exceeded)")
     ap.add_argument("--scaling", action="store_true",
-                    help="not ported: exits 1")
+                    help="run the sharded-filter scaling report (stderr): the "
+                         "halo-cost model at this run's measured rates, the "
+                         "mesh in one process, and a 2-process exchange")
     ap.add_argument("--e2e", action="store_true",
                     help="run the whole-tool wall-time decomposition (stderr)")
     ap.add_argument("--e2e-hours", type=float, default=1.0)
@@ -515,7 +542,7 @@ def _build_kernels(args) -> None:
 
     names = {"conv_blocks" if osv.resolve_engine(args.engine) in
              osv.BLOCK_ENGINES else "segment_filter"}
-    if args.all or args.e2e:
+    if args.all or args.e2e or args.scaling:
         names.add("segment_filter")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
@@ -526,9 +553,6 @@ def _build_kernels(args) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.scaling:
-        log(SCALING_REFUSAL)
-        return 1
     try:
         dev = resolve_device(args.device)
     except RuntimeError as e:
@@ -577,6 +601,9 @@ def main(argv=None) -> int:
             r16.update(_share(r16.pop("work"), r16.pop("seconds_per_call"), dev))
         extra["fast16 16-bit I/O (headline shape)"] = r16
         log(json.dumps(extra, indent=2))
+
+    if args.scaling:
+        scaling_report(args, res, dev, card)
 
     rate = res["rate"]
     baseline = 100.0 * fs * args.channels  # 100x realtime, in samples/s

@@ -17,8 +17,17 @@ activity, plus CUDA activity on the card), written to
 ``DIR/trace.json`` (Chrome trace format) when the run ends, on the error
 path too.
 
-Not ported yet, each refused with a UsageError naming its ROADMAP.md item:
-``--mesh`` and the multi-host flags.
+``--mesh DxT``: shard channels over D and the sample axis over T of this
+process's devices (on ``--device cuda`` its cards, on ``--device cpu`` D*T
+CPU cells). ``1x1`` is the single device and takes the same route as no
+``--mesh`` at all; a larger mesh filters in float32 and runs a batch as a
+serial per-file loop (the mesh owns the parallelism), as the JAX package
+does. More cells than devices is an error.
+
+``--coordinator HOST:PORT --num-processes N --process-id I``: join a
+``torch.distributed`` group before any device work; a batch's files are
+then dealt round-robin to the processes. A join that fails exits 1 before
+any file is touched.
 """
 
 from __future__ import annotations
@@ -123,19 +132,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _not_ported(what: str, item: str) -> UsageError:
-    return UsageError(f"{what} is not ported to the PyTorch package yet "
-                      f"(ROADMAP.md, Queue 1: {item}).")
-
-
-def _reject_unported(args) -> None:
-    if args.mesh is not None:
-        raise _not_ported("--mesh", "parallel/ over NCCL")
-    for flag, value in (("--coordinator", args.coordinator),
-                        ("--num-processes", args.num_processes),
-                        ("--process-id", args.process_id)):
-        if value is not None:
-            raise _not_ported(flag, "parallel/ over NCCL")
+def _parse_mesh(spec: str | None):
+    if spec is None:
+        return None
+    try:
+        d, t = spec.lower().split("x")
+        shape = (int(d), int(t))
+        if shape[0] < 1 or shape[1] < 1:
+            raise ValueError
+        return shape
+    except ValueError:
+        raise UsageError(f"--mesh expects DxT (e.g. 1x8), got {spec!r}") from None
 
 
 TRACE_NAME = "trace.json"
@@ -175,6 +182,7 @@ def _options_from_args(args) -> FilterOptions:
         precision=args.precision,
         engine=args.engine,
         block_size=args.block_size,
+        mesh_shape=_parse_mesh(args.mesh),
         json_metrics=args.json_metrics,
     )
 
@@ -205,12 +213,31 @@ def run(argv=None) -> None:
     elif args.frequency_high is not None:
         raise UsageError(
             "--frequency-high only applies to --filter bandpass/bandreject.")
-    _reject_unported(args)
 
     opts = _options_from_args(args)
     if opts.verbose:
         print(f"Using {opts.resolved_num_threads()} threads.")
 
+    if (args.coordinator is None and args.num_processes is None
+            and args.process_id is None):
+        return _run_profiled(args, opts)
+    # Multi-process launch: join the group before any device work. A join
+    # that fails raises here, before any file is touched.
+    from .parallel import distributed
+
+    try:
+        distributed.initialize(args.coordinator, args.num_processes,
+                               args.process_id,
+                               backend="gloo" if args.device == "cpu" else None)
+        if opts.verbose:
+            pi, pc = distributed.process_info()
+            print(f"Joined distributed runtime: process {pi}/{pc}.")
+        _run_profiled(args, opts)
+    finally:
+        distributed.shutdown()
+
+
+def _run_profiled(args, opts: FilterOptions) -> None:
     if not args.profile:
         return _run_scenario(args, opts)
     with _profiled(args.profile, args.device):
@@ -260,6 +287,8 @@ def _run_scenario(args, opts: FilterOptions) -> None:
                 f"Destination directory '{dest_dir}' does not exist and "
                 f"has a suffix. Undefined scenario.")
 
+        from .parallel.distributed import shard_files
+        from .pipeline import process_file
         from .pipeline.batch import run_batch
         from .pipeline.manifest import BatchManifest, options_fingerprint
         from .utils.device import resolve_device
@@ -268,15 +297,39 @@ def _run_scenario(args, opts: FilterOptions) -> None:
         if not dest_dir.exists():
             if opts.verbose:
                 print(f"Creating directory: {dest_dir}")
-            dest_dir.mkdir(parents=True)
+            dest_dir.mkdir(parents=True, exist_ok=True)  # processes race
         manifest = (BatchManifest(dest_dir, options_fingerprint(opts, device))
                     if args.resume else None)
-        # Pipelined batch: host reader/writer threads (the -t pool) overlap
-        # file I/O with the device loop.
-        run_batch(paths[:-1], dest_dir, opts, overwrite=args.overwrite,
-                  manifest=manifest, device=device,
-                  metrics_cb=(lambda m, d: _emit_metrics(m, d, args))
-                  if args.json_metrics else None)
+        # A multi-process batch deals the files round-robin: each process
+        # filters its own, with no traffic between them.
+        inputs = shard_files(paths[:-1])
+        if not opts.sharded():
+            # Pipelined batch: host reader/writer threads (the -t pool)
+            # overlap file I/O with the device loop.
+            run_batch(inputs, dest_dir, opts, overwrite=args.overwrite,
+                      manifest=manifest, device=device,
+                      metrics_cb=(lambda m, d: _emit_metrics(m, d, args))
+                      if args.json_metrics else None)
+            return
+        # Sharded filtering keeps the serial per-file loop (the mesh owns
+        # the parallelism; no point pipelining around it).
+        for input_path in inputs:
+            if not input_path.is_file():
+                raise FileNotFound(str(input_path))
+            dest_path = dest_dir / input_path.name
+            if (manifest is not None and manifest.is_done(input_path)
+                    and dest_path.exists()):
+                if opts.verbose:
+                    print(f"Skipping (already done): {input_path.name}")
+                continue
+            if dest_path.exists() and not (args.overwrite or args.resume):
+                raise FileExists(str(dest_path))
+            if dest_path.exists():
+                os.remove(dest_path)
+            metrics = process_file(input_path, dest_path, opts, device=device)
+            _emit_metrics(metrics, dest_path, args)
+            if manifest is not None:
+                manifest.mark_done(input_path)
 
     else:
         raise UsageError("Invalid number of parameters. Need at least 2.")

@@ -169,6 +169,22 @@ def plan_from_jax(jax_plan, taps: np.ndarray, device) -> OverlapSavePlan:
                  jax_plan.engine, jax_plan.conv_chunk)
 
 
+def plan_for_device(plan: OverlapSavePlan, device) -> OverlapSavePlan:
+    """``plan`` with its spectrum on ``device`` (a device with its index
+    spelled out): ``plan`` itself when it lives there, else a copy made
+    once per device and kept with the plan. A mesh cell on another card
+    needs its plan there: :func:`_as_input` moves the input to the plan's
+    device, so the first card's plan would pull every shard to that card."""
+    device = torch.device(device)
+    if plan.H.device == device:
+        return plan
+    cache = object.__getattribute__(plan, "__dict__").setdefault("_on_device", {})
+    if device not in cache:
+        cache[device] = dataclasses.replace(plan, device=device,
+                                            H=plan.H.to(device))
+    return cache[device]
+
+
 # ------------------------------------------------ launches and device bytes
 
 def block_count(plan: OverlapSavePlan, out_len: int) -> int:

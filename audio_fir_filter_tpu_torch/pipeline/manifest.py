@@ -77,9 +77,16 @@ def options_fingerprint(opts, device) -> str:
     resolved engine (``auto`` and ``pallas`` are one kernel), and the
     device type — the CPU's plain version and the card's kernels round
     differently. A resume that changes any of them must not mix outputs in
-    one directory. The port has no environment knobs, so none appear."""
+    one directory. The port has no environment knobs, so none appear.
+
+    A mesh larger than 1x1 is carried too, by its shape: it filters in
+    float32 whatever the source (no 16-bit-native route) and aligns its
+    blocks per shard, so its bits may differ from the single device's and
+    from another mesh's. ``--mesh 1x1`` is the single device, byte for
+    byte, and shares the fingerprint of a run without ``--mesh``."""
     return json.dumps(
         [FINGERPRINT_TAG, opts.filter_type, opts.freq, opts.freq_hi,
          opts.slope, opts.normalize, opts.precision, opts.block_size,
          resolve_engine(opts.engine), torch.device(device).type]
+        + ([list(opts.mesh_shape)] if opts.sharded() else [])
     )

@@ -11,6 +11,14 @@ same stage order, status lines and metrics keys:
   normalize-on-clip rule sees the unclipped peak.
 - One common scale normalizes when the filtered peak exceeds full scale,
   or on ``-n``: ``(max_mag > 1.0 or -n) and max_mag > 0``.
+- ``opts.mesh_shape`` (``--mesh DxT``): a 1x1 mesh is the single device, so
+  it takes exactly the route above and writes the same bytes. A larger
+  mesh shards every segment over this process's devices
+  (:func:`.stream.sharded_filter_streamed`) in float32, as the JAX package
+  does: it never takes the 16-bit-native route, so a 16-bit file's output
+  may differ from the single-device output by a rounding tie (the kernel
+  rounds its float32 result to int16 itself; the mesh path returns float32
+  and the codec rounds).
 """
 
 from __future__ import annotations
@@ -25,9 +33,11 @@ from ..audio.file import _scale_common
 from ..audio.format import Encoding
 from ..models import make_model
 from ..ops import segment_filter as sf
+from ..parallel.mesh import local_devices, make_mesh
 from ..utils.options import FilterOptions, resolve_precision
 from ..utils.progress import ProgressBar
-from .stream import filter_array_streamed, filter_array_streamed_i16
+from .stream import (filter_array_streamed, filter_array_streamed_i16,
+                     sharded_filter_streamed)
 
 
 def _use_i16_route(opts, precision: str, plan, data) -> bool:
@@ -66,7 +76,13 @@ def filter_and_normalize(data, plan, precision: str, opts: FilterOptions,
     bar = ProgressBar(total, enabled=show_progress and sys.stdout.isatty())
     t0 = time.perf_counter()
     filtered = max_mag = None
-    if _use_i16_route(opts, precision, plan, data):
+    if opts.sharded():
+        rows, cols = opts.mesh_shape
+        mesh = make_mesh((rows, cols),
+                         local_devices(plan.device, rows * cols))
+        filtered, max_mag = sharded_filter_streamed(
+            data.samples, plan, mesh, progress_cb=bar.update)
+    elif _use_i16_route(opts, precision, plan, data):
         x16 = np.asarray(data.samples * np.float32(32768.0), np.int16)
         y16, peak16, saturated = filter_array_streamed_i16(
             x16, plan, progress_cb=bar.update)

@@ -1,6 +1,7 @@
 """Host <-> device streaming of long signals through the plan's kernel.
 
-Counterpart of ``audio_fir_filter_tpu/pipeline/stream.py`` (one device).
+Counterpart of ``audio_fir_filter_tpu/pipeline/stream.py``: one device, and
+a mesh of cells (:func:`sharded_filter_streamed`).
 The time axis is cut into segments; each segment is filtered with
 kernel-length halos taken from its neighbours in host memory, so segment
 seams are exact and only the true signal edges are zero-padded. The output
@@ -19,6 +20,7 @@ import torch
 
 from ..ops import overlap_save as osv
 from ..ops import segment_filter as sf
+from ..parallel.sharded_conv import sharded_filter
 
 
 def default_segment_len(plan: osv.OverlapSavePlan, target: int = 1 << 24,
@@ -149,3 +151,66 @@ def filter_array_streamed_i16(
         if progress_cb:
             progress_cb(c * (e - s))
     return out, peak, peak >= 32767
+
+
+def sharded_filter_streamed(
+    x: np.ndarray,
+    plan: osv.OverlapSavePlan,
+    mesh,
+    segment_len: int = 0,
+    progress_cb=None,
+) -> tuple[np.ndarray, float]:
+    """Mesh-sharded analog of :func:`filter_array_streamed`, on a mesh of
+    this process's cells.
+
+    Cuts [C, N] into fixed segments, filters each across the mesh (halos
+    between the shards; host-fed edge halos chain the segments), and
+    reports progress per segment. The segment length is that of one device
+    (:func:`default_segment_len`), rounded up to a multiple of ``t * hop``
+    and grown until a shard holds at least Mo2 frames, so each shard gets
+    ``segment / t`` frames.
+
+    Returns (y [C, N] float32, global pre-scale peak). Normalization is
+    the caller's single common scale: no per-segment scaling ever happens
+    (``auto_scale=False``). The peak covers the real region only: neither
+    the zero tail of the last segment nor the channels padded to the data
+    axis.
+    """
+    x = np.asarray(x, np.float32)
+    if x.ndim == 1:
+        y, peak = sharded_filter_streamed(x[None, :], plan, mesh,
+                                          segment_len, progress_cb)
+        return y[0], peak
+    c, n = x.shape
+    if n == 0:
+        return x.copy(), 0.0
+    d, t = mesh.shape
+    mo2, quantum = plan.mo2, t * plan.hop
+    seg = segment_len or default_segment_len(plan, channels=c)
+    seg = max(1, -(-seg // quantum)) * quantum
+    if t > 1 and seg // t < mo2:
+        seg = -(-mo2 * t // quantum) * quantum
+
+    cp = -(-c // d) * d
+    if cp != c:
+        # Channels pad once to the data axis (tiny for realistic meshes);
+        # the time axis is never padded whole: each segment assembles its
+        # own edge-padded staging buffers.
+        x_in = np.zeros((cp, n), np.float32)
+        x_in[:c] = x
+    else:
+        x_in = x
+
+    out = np.empty((c, n), dtype=np.float32)
+    peak = 0.0
+    for s, e in _segments(n, seg):
+        yj, pj = sharded_filter(
+            _edge_slice(x_in, s, s + seg), plan, mesh,
+            edge_left=_edge_slice(x_in, s - mo2, s),
+            edge_right=_edge_slice(x_in, s + seg, s + seg + mo2),
+            auto_scale=False, valid=(c, e - s))
+        out[:, s:e] = yj[:c, : e - s].cpu().numpy()
+        peak = max(peak, pj)
+        if progress_cb:
+            progress_cb(c * (e - s))
+    return out, peak

@@ -39,11 +39,16 @@ class FilterOptions:
     engine: str = "auto"  # FFT engine: auto | pallas | fourstep | pease | stockham
                               # "auto": pallas (the segment kernel)
     block_size: int = 0       # overlap-save FFT size; 0 -> auto from kernel length
-    mesh_shape: tuple[int, ...] | None = None  # None -> all local devices on "time"
+    mesh_shape: tuple[int, ...] | None = None  # (data, time) cells; None -> one device
     json_metrics: bool = False  # emit per-stage timing metrics as JSON
 
     def resolved_num_threads(self) -> int:
         return self.num_threads if self.num_threads > 0 else default_num_workers()
+
+    def sharded(self) -> bool:
+        """Whether a mesh of more than one cell is asked for (a 1x1 mesh is
+        the single device)."""
+        return self.mesh_shape is not None and tuple(self.mesh_shape) != (1, 1)
 
 
 # Output encodings whose quantization step is coarse enough that the plain

@@ -63,8 +63,30 @@ result line):
    and read after: the Chrome trace exists and names the segment kernel's
    passes (``cols_forward``, ``rows_multiply``, ``cols_inverse``).
 
+12. the mesh (``audio_fir_filter_tpu_torch/parallel``), counters zeroed
+   before and read after each part: ``--mesh 1x1`` through the CLI on (a)
+   and (b), byte-identical to phase 6's outputs with equal launch counts;
+   through the API, meshes (1, 2), (1, 4) and (2, 2) with every cell on
+   the one card at full width (2 channels, 96 kHz, M = 38,400, B = 2^18;
+   ``high`` and ``fast``, and the block path once) against the unsharded
+   port and float64 oracle excerpts across every shard seam, the peak
+   equal to the unsharded peak, edge halos chaining two segments, and file
+   (a)'s samples through ``sharded_filter_streamed``; an NCCL group of
+   world size 1 in a subprocess (``sharded_filter`` on the default (1, 1)
+   mesh, ``all_reduce(MAX)``); two processes that share the card in a gloo
+   group (file rendezvous), one cell of a (1, 2) mesh each, halos staged
+   through the host, each shard against the oracle; a 2-process batch of
+   (a)-(d) through the CLI (``--coordinator`` on localhost), a disjoint
+   cover whose outputs equal the single-file outputs byte for byte;
+   ``bench --scaling`` in a subprocess (the model's table parsed, the
+   measured halo cost printed); and ``--mesh 1x2`` through the CLI, which
+   exits 1 naming 2 devices against 1.
+
 The build phase also checks that the native PCM codec loaded (its g++
-build), so the host codec of phases 6-11 is the native one.
+build), so the host codec of phases 6-12 is the native one.
+
+``--skip 3,4,5,7,9,10,11`` (any of them) leaves phases out while a change
+is being worked on; such a run prints no result line.
 
 Output: the phase reports, then a JSON line of per-kernel results (each
 row with its launches on its path, error against its plain version, its
@@ -76,12 +98,14 @@ the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import hashlib
 import io
 import json
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -809,8 +833,9 @@ def _add(*counts: dict) -> dict:
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
-def phase_batch(card: str, files: dict, single: dict, tmp: Path) -> None:
-    """The batch scenario with ``--resume`` (default filter settings)."""
+def phase_batch(card: str, files: dict, single: dict, tmp: Path) -> dict:
+    """The batch scenario with ``--resume`` (default filter settings).
+    Returns the single-file runs of (a)-(d)."""
     from audio_fir_filter_tpu_torch import audio
     from audio_fir_filter_tpu_torch.pipeline.manifest import MANIFEST_NAME
 
@@ -882,6 +907,7 @@ def phase_batch(card: str, files: dict, single: dict, tmp: Path) -> None:
           "resumed output of the late file differs from its single-file output")
     print(f"batch abort at a missing file: exit 1, 2 files written and in the "
           f"manifest; --resume with it present launched {rest} (the rest only)")
+    return single
 
 
 def phase_probes(card: str) -> dict:
@@ -995,32 +1021,421 @@ def phase_profile(card: str, files: dict, tmp: Path) -> None:
           f"device us): {per_pass}")
 
 
-def main() -> int:
+# ------------------------------------------------------------ phase 12: mesh
+
+MESH_HOPS = 8           # frames per channel of the API mesh runs, in hops
+MESH_EXCERPT = 1024     # frames per oracle excerpt across a shard seam
+WORKER_TIMEOUT_S = 300
+
+
+def _mesh_signal() -> tuple[np.ndarray, object]:
+    """2 channels x 8 hops at 96 kHz (M = 38,400, B = 2^18: 1,789,952
+    frames, 18.6 s of audio), and the model."""
+    from audio_fir_filter_tpu_torch.models import LowCut
+
+    model = LowCut(freq=15.0, slope=10.0)
+    n = MESH_HOPS * model.plan(96000.0, precision="high", device="cuda").hop
+    x = _signal(96000.0, 19.0, np.random.default_rng(SEED + 7))[:, :n]
+    return np.ascontiguousarray(x), model
+
+
+def _seam_excerpts(y: np.ndarray, x: np.ndarray, taps, starts, bits: int,
+                   offset: int = 0) -> float:
+    """Worst error of ``y`` (whose column 0 is frame ``offset`` of the
+    whole output) against the float64 oracle of ``x`` on excerpts of
+    MESH_EXCERPT frames from each of ``starts`` (whole-output frames)."""
+    worst = 0.0
+    for c in range(y.shape[0]):
+        for i0 in starts:
+            i0 = max(offset, min(offset + y.shape[1] - MESH_EXCERPT, i0))
+            want = oracle_excerpt(x[c].astype(np.float64), taps, i0,
+                                  MESH_EXCERPT).astype(np.float32)
+            got = y[c, i0 - offset : i0 - offset + MESH_EXCERPT]
+            worst = max(worst, scaled_lsb_error(got, want, bits))
+    return worst
+
+
+def _seam_starts(n: int, t: int) -> list[int]:
+    """Head, tail, and an excerpt centred on every seam of ``t`` shards."""
+    return [0, *(j * (n // t) - MESH_EXCERPT // 2 for j in range(1, t)),
+            n - MESH_EXCERPT]
+
+
+def _delta(before: dict) -> dict:
+    after = _counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _mesh_api(files: dict) -> None:
+    """sharded_filter on meshes of cells that all lie on the one card."""
+    from audio_fir_filter_tpu_torch import audio
+    from audio_fir_filter_tpu_torch.ops import overlap_save as osv
+    from audio_fir_filter_tpu_torch.parallel import make_mesh, sharded_filter
+    from audio_fir_filter_tpu_torch.pipeline import (filter_array_streamed,
+                                                     sharded_filter_streamed)
+
+    x, model = _mesh_signal()
+    taps = model.taps(96000.0)
+    n = x.shape[1]
+    xd = torch.from_numpy(x).cuda()
+    card0 = torch.device("cuda", 0)
+    runs = [(shape, precision, "auto") for precision in ("high", "fast")
+            for shape in ((1, 2), (1, 4), (2, 2))] + [((1, 4), "high", "fourstep")]
+    for shape, precision, engine in runs:
+        bits = 24 if precision == "high" else 16
+        mode = "f64" if precision == "high" else "f32"
+        plan = model.plan(96000.0, precision=precision, device="cuda",
+                          engine=engine)
+        ref, ref_peak = osv.same_filter_peak(xd, plan)
+        mesh = make_mesh(shape, [card0] * (shape[0] * shape[1]))
+        before = _counts()
+        y, peak = sharded_filter(xd, plan, mesh)
+        torch.cuda.synchronize()
+        made = _delta(before)
+        cells = shape[0] * shape[1]
+        if engine == "auto":
+            # One launch of the segment kernel a cell.
+            check(made == {f"segment_filter_{mode}": cells},
+                  f"mesh {shape} {precision}: launches {made}, want {cells}")
+        else:
+            per_cell = osv.launches_per_call(plan, 2 // shape[0], n // shape[1])
+            check(made == {f"conv_blocks_{mode}": cells * per_cell},
+                  f"mesh {shape} {engine}: launches {made}")
+        check(y.device == card0 and tuple(y.shape) == (2, n)
+              and bool(torch.isfinite(y).all()), f"mesh {shape}: bad output")
+        yh, rh = y.cpu().numpy(), ref.cpu().numpy()
+        err = scaled_lsb_error(yh, rh, bits)
+        seam = _seam_excerpts(yh, x, taps, _seam_starts(n, shape[1]), bits)
+        print(f"mesh {shape} {precision} engine={engine}: {cells} cells on "
+              f"cuda:0, launches {made}; vs unsharded {err:.4f} LSB@{bits}, "
+              f"oracle across every shard seam {seam:.4f} LSB@{bits}; peak "
+              f"{peak:.7f} vs unsharded {float(ref_peak):.7f}")
+        check(err <= 1.0, f"mesh {shape} {precision}: vs unsharded {err} LSB")
+        check(seam <= 1.0, f"mesh {shape} {precision}: oracle seam {seam} LSB")
+        check(abs(peak - float(ref_peak)) <= 1e-5 * float(ref_peak),
+              f"mesh {shape} {precision}: peak {peak} != {float(ref_peak)}")
+
+    # Edge halos chain two segments of 4 hops, each on a (1, 2) mesh.
+    plan = model.plan(96000.0, precision="high", device="cuda")
+    mesh = make_mesh((1, 2), [card0] * 2)
+    half, mo2 = n // 2, plan.mo2
+    y0, p0 = sharded_filter(x[:, :half], plan, mesh,
+                            edge_right=x[:, half : half + mo2], auto_scale=False)
+    y1, p1 = sharded_filter(x[:, half:], plan, mesh,
+                            edge_left=x[:, half - mo2 : half], auto_scale=False)
+    yh = torch.cat([y0, y1], dim=1).cpu().numpy()
+    ref, ref_peak = osv.same_filter_peak(xd, plan)
+    err = scaled_lsb_error(yh, ref.cpu().numpy(), 24)
+    seam = _seam_excerpts(yh, x, taps, _seam_starts(n, 4), 24)
+    print(f"mesh (1, 2), two segments chained by edge halos: vs unsharded "
+          f"{err:.4f} LSB@24, oracle across the segment and shard seams "
+          f"{seam:.4f} LSB@24; peak {max(p0, p1):.7f} vs {float(ref_peak):.7f}")
+    check(err <= 1.0 and seam <= 1.0, f"chained segments: {err} / {seam} LSB")
+    check(abs(max(p0, p1) - float(ref_peak)) <= 1e-5 * float(ref_peak),
+          "chained segments: peak differs")
+
+    # File (a)'s samples through the streamed mesh path, as --mesh 1x2
+    # would run them on two cards.
+    xa = audio.read_audio(files["a"]).samples
+    before = _counts()
+    t0 = time.perf_counter()
+    ys, ps = sharded_filter_streamed(xa, plan, mesh)
+    t_mesh = time.perf_counter() - t0
+    made = _delta(before)
+    t0 = time.perf_counter()
+    yr, pr = filter_array_streamed(xa, plan)
+    t_one = time.perf_counter() - t0
+    err = scaled_lsb_error(ys, yr, 24)
+    print(f"sharded_filter_streamed, file (a) {xa.shape[1]} frames x 2 ch on a "
+          f"(1, 2) mesh of cuda:0 cells: {t_mesh:.3f} s, launches {made}; "
+          f"filter_array_streamed {t_one:.3f} s; {err:.4f} LSB@24, peak "
+          f"{ps:.7f} vs {pr:.7f}")
+    check(err <= 1.0, f"streamed mesh vs unsharded: {err} LSB@24")
+    check(abs(ps - pr) <= 1e-5 * pr, f"streamed mesh peak {ps} != {pr}")
+    check(made.get("segment_filter_f64", 0) >= 2 and len(made) == 1,
+          f"streamed mesh launches {made}")
+
+
+def worker_nccl(port: str) -> None:
+    """Subprocess: an NCCL group of world size 1, sharded_filter on the
+    default (1, 1) mesh (this rank's card), all_reduce(MAX) of the peak."""
+    import torch.distributed as dist
+
+    from audio_fir_filter_tpu_torch.ops import overlap_save as osv
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+    from audio_fir_filter_tpu_torch.parallel import (distributed, make_mesh,
+                                                     sharded_filter)
+
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        check(distributed.process_info() == (0, 1)
+              and dist.get_backend() == "nccl", "not an NCCL group of 1")
+        x, model = _mesh_signal()
+        plan = model.plan(96000.0, precision="high", device="cuda")
+        mesh = make_mesh((1, 1))
+        check(mesh.cells[0][0].device == torch.device("cuda", 0),
+              f"default mesh cell {mesh.cells[0][0]}")
+        y, peak = sharded_filter(x, plan, mesh)
+        top = torch.tensor(peak, dtype=torch.float32, device="cuda")
+        dist.all_reduce(top, op=dist.ReduceOp.MAX)
+        torch.cuda.synchronize()
+        ref, ref_peak = osv.same_filter_peak(torch.from_numpy(x).cuda(), plan)
+        print(json.dumps({
+            "equal": bool(torch.equal(y, ref)),
+            "err": scaled_lsb_error(y.cpu().numpy(), ref.cpu().numpy(), 24),
+            "peak": peak,
+            "reduced": float(top), "ref_peak": float(ref_peak),
+            "launches": sf.launches["f64"]}))
+    finally:
+        distributed.shutdown()
+
+
+def worker_halo(rank: int, world: int, rendezvous: str) -> None:
+    """Subprocess: one cell of a (1, world) mesh on the shared card, in a
+    gloo group; this rank's shard against the float64 oracle."""
+    import torch.distributed as dist
+
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+    from audio_fir_filter_tpu_torch.parallel import (LocalShards, assemble,
+                                                     distributed, make_mesh,
+                                                     sharded_filter)
+
+    distributed.initialize(f"file://{rendezvous}", world, rank, backend="gloo")
+    try:
+        check(dist.get_backend() == "gloo", "not a gloo group")
+        x, model = _mesh_signal()
+        taps = model.taps(96000.0)
+        plan = model.plan(96000.0, precision="high", device="cuda")
+        n = x.shape[1]
+        s = n // world
+        mesh = make_mesh((1, world), [(r, "cuda:0") for r in range(world)])
+        # Only this rank's slice is real: a halo that did not come from the
+        # other process would show as NaN.
+        mine = np.full_like(x, np.nan)
+        mine[:, rank * s : (rank + 1) * s] = x[:, rank * s : (rank + 1) * s]
+        y, peak = sharded_filter(mine, plan, mesh)
+        torch.cuda.synchronize()
+        check(isinstance(y, LocalShards) and list(y.parts) == [(0, rank)],
+              f"rank {rank} holds {y}")
+        part = y.parts[(0, rank)]
+        check(part.is_cuda and bool(torch.isfinite(part).all()),
+              f"rank {rank}: shard not finite (a halo did not arrive)")
+        err = _seam_excerpts(part.cpu().numpy(), x, taps,
+                             [rank * s, (rank + 1) * s - MESH_EXCERPT // 2,
+                              (rank + 1) * s - MESH_EXCERPT], 24,
+                             offset=rank * s)
+        whole = assemble(y, mesh, dst=0)
+        whole_err = None
+        if rank == 0:
+            whole_err = _seam_excerpts(whole, x, taps, _seam_starts(n, world), 24)
+        print(json.dumps({"rank": rank, "err": err, "peak": peak,
+                          "whole_err": whole_err,
+                          "launches": sf.launches["f64"]}))
+    finally:
+        distributed.shutdown()
+
+
+def _workers(argvs: list[list[str]], what: str) -> list[tuple[str, str]]:
+    """Run the commands at once; each one's (stdout, stderr). Fails if one
+    exits non-zero or outlasts its limit; leaves none running."""
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, cwd=ROOT) for a in argvs]
+    outs = []
+    try:
+        for i, p in enumerate(procs):
+            out, err = p.communicate(timeout=WORKER_TIMEOUT_S)
+            check(p.returncode == 0,
+                  f"{what} {i} exited {p.returncode}: {err[-3000:]}")
+            outs.append((out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_processes(card: str, files: dict, single: dict, tmp: Path) -> None:
+    me = [sys.executable, str(ROOT / "chip_smoke.py"), "--worker"]
+
+    # An NCCL group of world size 1.
+    t0 = time.perf_counter()
+    (out, _), = _workers([[*me, "nccl", str(_free_port())]], "NCCL worker")
+    r = json.loads(out.strip().splitlines()[-1])
+    print(f"NCCL group of world size 1 ({time.perf_counter() - t0:.1f} s): "
+          f"sharded_filter on the default (1, 1) mesh {r}")
+    check(r["err"] <= 1.0, f"(1, 1) mesh under NCCL vs unsharded: {r['err']} LSB@24")
+    check(r["peak"] == r["reduced"] and
+          abs(r["peak"] - r["ref_peak"]) <= 1e-6 * r["ref_peak"],
+          f"NCCL all_reduce(MAX): {r}")
+    check(r["launches"] == 2, f"NCCL worker launched {r['launches']} times")
+
+    # Two processes share the card; halos over gloo, staged through the host.
+    t0 = time.perf_counter()
+    rendezvous = str(tmp / "halo_rendezvous")
+    outs = _workers([[*me, "halo", str(rank), "2", rendezvous]
+                     for rank in range(2)], "halo worker")
+    rows = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    print(f"2 processes on {card}, gloo group, (1, 2) mesh, one cell a rank "
+          f"({time.perf_counter() - t0:.1f} s): {rows}")
+    for r in rows:
+        check(r["err"] <= 1.0, f"rank {r['rank']}: shard vs oracle {r['err']} LSB@24")
+        check(r["launches"] == 1, f"rank {r['rank']} launched {r['launches']} times")
+    check(rows[0]["peak"] == rows[1]["peak"], "the ranks' peaks differ")
+    check(rows[0]["whole_err"] <= 1.0, f"assembled output {rows[0]['whole_err']} LSB")
+
+    # A 2-process batch of (a)-(d) through the CLI.
+    t0 = time.perf_counter()
+    dest = tmp / "batch_2proc"
+    port = _free_port()
+    inputs = [files[t] for t in "abcd"]
+    outs = _workers([[sys.executable, str(ROOT / "bin" / "lowcut-torch"),
+                      *map(str, inputs), str(dest), "-v", "--coordinator",
+                      f"127.0.0.1:{port}", "--num-processes", "2",
+                      "--process-id", str(rank)] for rank in range(2)],
+                    "batch process")
+    done = [[ln.split(": ")[1] for ln in out.splitlines()
+             if ln.startswith("Processing file: ")] for out, _ in outs]
+    check(done == [[inputs[0].name, inputs[2].name],
+                   [inputs[1].name, inputs[3].name]],
+          f"2-process batch dealt {done}")
+    for t in "abcd":
+        check(_sha(dest / files[t].name) == _sha(single[t][0]),
+              f"2-process batch output of ({t}) differs from its single-file "
+              "output")
+    print(f"2-process batch of (a)-(d) through the CLI "
+          f"({time.perf_counter() - t0:.1f} s): process 0 {done[0]}, process 1 "
+          f"{done[1]}; every output byte-identical to its single-file output")
+
+
+def _mesh_scaling(card: str) -> None:
+    cmd = [sys.executable, "-m", "audio_fir_filter_tpu_torch.bench",
+           "--scaling", "--reps", "3"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                       timeout=600)
+    print(f"--- bench --scaling --reps 3 ({time.perf_counter() - t0:.1f} s, "
+          f"exit {r.returncode}) on {card}:")
+    print(r.stderr.rstrip())
+    check(r.returncode == 0, f"bench --scaling exited {r.returncode}")
+    lines = r.stdout.strip().splitlines()
+    check(len(lines) == 1 and json.loads(lines[0])["value"] > 0,
+          f"bench --scaling stdout: {lines}")
+    print(f"bench result: {lines[0]}")
+    rows = [ln.split() for ln in r.stderr.splitlines()
+            if len(ln.split()) == 7 and ln.split()[0].isdigit()]
+    check(len(rows) == 12, f"scaling model: {len(rows)} rows, want 2 x 6")
+    check(all(0.0 < float(x[4]) <= 1.0 and 0.0 < float(x[6]) <= 1.0
+              for x in rows), f"scaling model rows {rows}")
+    check(r.stderr.count("model, not measured: one card") >= 3,
+          "the scaling model is not marked as a model")
+    check(r.stderr.count(f"measured in this run on {card}") == 2,
+          "the scaling rates do not name the card and its power limit")
+    halo = [ln for ln in r.stderr.splitlines() if "halo exchange (production" in ln]
+    check(len(halo) == 1, "no measured halo line")
+    print(f"measured halo cost on {card}: {halo[0].strip()}")
+
+
+def phase_mesh(card: str, files: dict, single: dict, tmp: Path) -> dict:
+    """Phase 12. Returns the in-process launches of the mesh paths."""
+    _zero_counts()
+    for tag in "ab":
+        out = _out(files[tag], "mesh11")
+        m, wall, made = _timed_cli([str(files[tag]), str(out), "--mesh", "1x1"])
+        ref_out, _, ref_made, ref_m = single[tag]
+        check(_sha(out) == _sha(ref_out),
+              f"--mesh 1x1 output of ({tag}) differs from phase 6's")
+        check(made == ref_made, f"--mesh 1x1 on ({tag}) launched {made}, "
+              f"phase 6 {ref_made}")
+        _print_stages(f"{tag}, --mesh 1x1", m, card)
+        _print_stages(f"{tag}, phase 6", ref_m, card)
+    print("--mesh 1x1 on (a) and (b): byte-identical to phase 6's outputs, "
+          "equal launch counts")
+    _mesh_api(files)
+    counts = _counts()
+    print(f"mesh-path launches (in this process): "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for k in ("segment_filter_f64", "segment_filter_f32", "segment_filter_i16",
+              "conv_blocks_f64"):
+        check(counts[k] > 0, f"kernel {k} never launched on the mesh paths")
+
+    _mesh_processes(card, files, single, tmp)
+    _mesh_scaling(card)
+
+    rc, err = _cli_rc([str(files["d"]), str(_out(files["d"], "mesh12")),
+                       "--mesh", "1x2"])
+    check(rc == 1 and "needs 2 devices, have 1" in err,
+          f"--mesh 1x2 on one card exited {rc}: {err}")
+    check(not _out(files["d"], "mesh12").exists(), "--mesh 1x2 wrote a file")
+    print(f"--mesh 1x2 on one card: exit 1, {err.strip()!r}")
+    return counts
+
+
+SKIPPABLE = {3, 4, 5, 7, 9, 10, 11}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--skip", default="",
+                    help="phases to leave out, of 3,4,5,7,9,10,11 (no result "
+                         "line is printed)")
+    ap.add_argument("--worker", nargs="+", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        check(torch.cuda.is_available(), "no CUDA card")
+        kind, *rest = args.worker
+        if kind == "nccl":
+            worker_nccl(*rest)
+        else:
+            worker_halo(int(rest[0]), int(rest[1]), rest[2])
+        return 0
+    skip = {int(p) for p in args.skip.split(",") if p}
+    check(skip <= SKIPPABLE, f"--skip takes {sorted(SKIPPABLE)}")
+
     env = phase_environment()
     phase_build()
-    kernels = phase_kernels()
-    phase_edge_shapes()
-    conv = phase_conv_kernels()
-    phase_conv_edge_shapes()
+    if 3 not in skip:
+        kernels = phase_kernels()
+    if 4 not in skip:
+        phase_edge_shapes()
+    if 5 not in skip:
+        conv = phase_conv_kernels()
+        phase_conv_edge_shapes()
     with tempfile.TemporaryDirectory(prefix="lowcut_smoke_") as tmp:
         tmp = Path(tmp)
         files = make_inputs(tmp)
         main_path = phase_main_path(env["card"], files)
-        four = phase_fourstep(env["card"], files)
-        phase_batch(env["card"], files, main_path["single"], tmp)
-        probes = phase_probes(env["card"])
-        phase_bench(env["card"])
-        phase_profile(env["card"], files, tmp)
+        if 7 not in skip:
+            four = phase_fourstep(env["card"], files)
+        single = phase_batch(env["card"], files, main_path["single"], tmp)
+        if 9 not in skip:
+            probes = phase_probes(env["card"])
+        if 10 not in skip:
+            phase_bench(env["card"])
+        if 11 not in skip:
+            phase_profile(env["card"], files, tmp)
+        mesh = phase_mesh(env["card"], files, single, tmp)
+    if skip:
+        print(f"partial run: phases {sorted(skip)} skipped; no result line")
+        return 0
     rows = [{"name": f"segment_filter_{mode}", "route": "cuda",
              "source": SEGMENT_SOURCE, "replaces": SEGMENT_REPLACES,
              "launches": main_path["counts"][f"segment_filter_{mode}"],
+             "mesh_launches": mesh[f"segment_filter_{mode}"],
              **kernels[mode]}
             for mode, *_ in MODES]
     rows += [{"name": f"conv_blocks_{mode}", "route": "cuda",
               "source": CONV_SOURCE, "replaces": CONV_REPLACES,
-              "launches": four[f"conv_blocks_{mode}"], **conv[mode]}
+              "launches": four[f"conv_blocks_{mode}"],
+              "mesh_launches": mesh[f"conv_blocks_{mode}"], **conv[mode]}
              for mode, *_ in CONV_MODES]
-    rows += list(probes.values())
+    rows += [{**row, "mesh_launches": mesh[name]} for name, row in probes.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

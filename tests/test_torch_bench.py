@@ -2,7 +2,9 @@
 on ``--device cpu`` at a tiny size (B = 1024, 2-4 segment blocks, 1-2
 reps), where the wrappers take their plain versions: the stdout contract,
 the roofline model against a hand count, the fidelity gate, ``--all``,
-``--e2e``, and the refusals (``--scaling``; ``cuda`` without a card)."""
+``--e2e``, ``--scaling`` (the model's rows, the mesh in one process and
+the exchange measured between two gloo processes), and the refusal of
+``cuda`` without a card."""
 
 import json
 import math
@@ -15,6 +17,7 @@ from audio_fir_filter_tpu_torch import bench
 from audio_fir_filter_tpu_torch.ops import kernel_design as kd
 from audio_fir_filter_tpu_torch.ops import overlap_save as osv
 from audio_fir_filter_tpu_torch.ops import roofline
+from audio_fir_filter_tpu_torch.parallel import scaling_bench
 
 TINY = ["--device", "cpu", "--block-size", "1024", "--freq", "100",
         "--slope", "200", "--sample-rate", "8000", "--segment-blocks", "4",
@@ -154,10 +157,62 @@ def test_roofline_report_on_the_cpu_gives_no_share(capsys):
     assert "% of the binding bound" not in err
 
 
-def test_scaling_exits_1_naming_the_roadmap_item(capsys):
-    rc, out, err = run(capsys, ["--scaling", "--device", "cpu"])
-    assert rc == 1 and out == []
-    assert "ROADMAP.md, Queue 1 item 3" in err and "parallel/" in err
+def test_scaling_reports_the_model_and_the_measured_halo(capsys):
+    """``--scaling --device cpu`` at a tiny size: rc 0, the one JSON line on
+    stdout, and on stderr the model's rows at the rates this run measured
+    (both precisions), the mesh at 1/2/4/8 cells, and the measured halo
+    line; every link figure with its source, the rows marked as a model."""
+    rc, out, err = run(capsys, [*TINY, "--scaling"])
+    assert rc == 0, err
+    assert len(out) == 1 and json.loads(out[0])["value"] > 0
+    for precision in ("high", "fast"):
+        assert f"{precision} path: " in err
+    assert err.count("measured in this run on cpu") == 2
+    assert err.count("halo-cost model (1 h 8 kHz x 2 ch, M=160; model, not "
+                     "measured: one card)") == 2
+    assert "NVIDIA H100 SXM data sheet" in err and "DGX H100 data sheet" in err
+    rows = [ln.split() for ln in err.splitlines()
+            if len(ln.split()) == 7 and ln.split()[0] in map(
+                str, scaling_bench.SHARD_COUNTS)]
+    assert len(rows) == 2 * len(scaling_bench.SHARD_COUNTS)
+    for r in rows:
+        assert len(r) == 7 and 0.0 < float(r[4]) <= 1.0 and 0.0 < float(r[6]) <= 1.0
+    assert [ln.split(":")[0].strip() for ln in err.splitlines()
+            if ln.startswith("  T=")] == ["T=1", "T=2", "T=4", "T=8"]
+    assert "halo exchange (production _halo_exchange, Mo2=80)" in err
+    assert "no-communication twin" in err and "weak-scaling ratio" in err
+    assert err.count("-> eff ") == 2
+    assert "TPU" not in err and "ICI" not in err and "DCN" not in err
+
+
+def test_scaling_model_formula():
+    """The model's rows: t_comp = C * (N / t) / rate, t_halo = 2 * C * Mo2
+    * 4 B / link rate, efficiency = t_comp / (t_comp + t_halo)."""
+    lines = []
+    rows = scaling_bench.halo_cost_model(lines.append, 4.0e10)
+    m, n = 38400, 3600 * 96000
+    assert [r["shards"] for r in rows] == list(scaling_bench.SHARD_COUNTS)
+    for r in rows:
+        t_comp = 2 * (n // r["shards"]) / 4.0e10
+        assert r["local_span"] == n // r["shards"]
+        assert r["eff_nvlink"] == pytest.approx(
+            t_comp / (t_comp + 2 * 2 * (m // 2) * 4.0 / 4.5e11))
+        assert r["eff_nic"] == pytest.approx(
+            t_comp / (t_comp + 2 * 2 * (m // 2) * 4.0 / 5.0e10))
+    assert f"M={m}" in lines[0] and "model, not measured" in lines[0]
+    # The per-cell rate is the caller's measurement: there is no default.
+    with pytest.raises(TypeError):
+        scaling_bench.halo_cost_model(lines.append)
+    assert not {"CHIP_RATE", "CHIP_RATE_FAST", "ICI_BW", "DCN_BW"} & set(
+        vars(scaling_bench))
+
+
+def test_a_failed_scaling_child_fails_the_run(capsys, monkeypatch):
+    """A child that fails makes ``--scaling`` fail with no result line."""
+    monkeypatch.setattr(scaling_bench.sys, "executable", "/bin/false")
+    with pytest.raises(RuntimeError, match="scaling child 0 of 2 exited 1"):
+        bench.main([*TINY, "--scaling"])
+    assert capsys.readouterr().out == ""
 
 
 def test_cuda_without_a_card_exits_1_with_no_result(capsys, monkeypatch):

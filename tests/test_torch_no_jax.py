@@ -2,8 +2,9 @@
 ``audio_fir_filter_tpu`` blocked in ``sys.modules``, a fresh interpreter
 imports the package (and chip_smoke.py), filters a tiny WAV on the CPU
 through ``process_file``, runs ``--engine fourstep`` and ``--profile``
-through the CLI and a ``--resume`` batch, runs the bench at a tiny size,
-and imports every probe module of ``audio_fir_filter_tpu_torch.experiments``
+through the CLI and a ``--resume`` batch, imports every module of
+``audio_fir_filter_tpu_torch.parallel`` and runs ``--mesh 1x2``, runs the
+bench at a tiny size, and imports every probe module of ``audio_fir_filter_tpu_torch.experiments``
 and runs one plain version of each. A static check reads every file of the
 port and chip_smoke.py for an import of the JAX package."""
 
@@ -47,6 +48,13 @@ assert (read_audio(d + "/batch/in.wav").samples == y).all()
 assert main([d + "/in.wav", d + "/prof.wav", "--profile", d + "/prof", *cpu]) == 0
 import os
 assert os.path.isfile(d + "/prof/trace.json")
+import audio_fir_filter_tpu_torch.parallel
+import audio_fir_filter_tpu_torch.parallel.distributed
+import audio_fir_filter_tpu_torch.parallel.mesh
+import audio_fir_filter_tpu_torch.parallel.scaling_bench
+import audio_fir_filter_tpu_torch.parallel.sharded_conv
+assert main([d + "/in.wav", d + "/mesh.wav", "--mesh", "1x2", *cpu]) == 0
+assert np.abs(read_audio(d + "/mesh.wav").samples - y).max() <= 2.0 ** -23
 from audio_fir_filter_tpu_torch import bench
 assert bench.main(["--device", "cpu", "--block-size", "1024", "--freq", "100",
                    "--slope", "200", "--sample-rate", "8000",
