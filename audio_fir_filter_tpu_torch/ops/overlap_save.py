@@ -235,6 +235,12 @@ def call_bytes(plan: OverlapSavePlan, channels: int, out_len: int) -> int:
 # ------------------------------------------------------------------ filters
 
 def _as_input(x, plan: OverlapSavePlan) -> tuple[torch.Tensor, bool]:
+    """``(x as [C, N], whether it was [N])``, float32, contiguous, on the
+    plan's device. A tensor that already is all three passes through
+    untouched: the same tensor, no copy and no wait for the card (the
+    streamed routes upload their segments themselves, without blocking).
+    Anything else is copied there; from pageable host memory that copy
+    blocks the host."""
     x = torch.as_tensor(x)
     x = x.to(device=plan.device, dtype=torch.float32).contiguous()
     squeeze = x.dim() == 1
@@ -254,7 +260,12 @@ def _block_filter_peak(x: torch.Tensor, plan: OverlapSavePlan, left: int,
                        out_len: int):
     """The generic block path: y[i] = sum_k h[k] x[i - left + k] for i in
     [0, out_len) through the block kernel, ``conv_chunk`` blocks per call,
-    and the peak over those ``out_len`` samples only."""
+    and the peak over those ``out_len`` samples only, as a 0-d tensor.
+
+    Free of host syncs: the window copy, the launches, the join and the
+    peak are all queued on the device; only sizes computed on the host
+    steer them, so a caller may queue the next segment before reading
+    this one."""
     c = x.shape[0]
     b, m, hop = plan.block_size, plan.m, plan.hop
     nb = block_count(plan, out_len)

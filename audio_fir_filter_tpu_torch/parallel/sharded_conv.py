@@ -221,18 +221,8 @@ def sharded_filter(x, plan: osv.OverlapSavePlan, mesh: Mesh,
             if mesh.cells[i][j].rank == rank]
     shards = {(i, j): x[i * cd : (i + 1) * cd, j * s : (j + 1) * s]
               .to(mesh.cells[i][j].device) for i, j in mine}
-    extended = _halo_exchange(shards, plan.mo2, mesh, edge_left, edge_right)
-
-    parts, peaks = {}, []
-    for i, j in mine:
-        _, rows, _, cols = _block(mesh, (c, n), valid, i, j)
-        if rows == 0 or cols == 0:
-            continue
-        device = mesh.cells[i][j].device
-        y, p = osv.extended_filter_peak(extended[(i, j)][:rows].contiguous(),
-                                        osv.plan_for_device(plan, device), cols)
-        parts[(i, j)] = y
-        peaks.append(p)
+    parts, peaks = _filter_cells(shards, plan, mesh, (c, n), edge_left,
+                                 edge_right, valid)
     peak = _global_peak(peaks, mesh, rank)
 
     # The reference rule: scale iff clip or -n, never by a zero peak.
@@ -242,12 +232,40 @@ def sharded_filter(x, plan: osv.OverlapSavePlan, mesh: Mesh,
 
     if not mesh.is_local(rank):
         return LocalShards((c, n), valid, parts), peak
-    whole = torch.empty if valid == (c, n) else torch.zeros
-    out = whole((c, n), dtype=torch.float32, device=mesh.cells[0][0].device)
+    return _join(parts, mesh, (c, n), valid), peak
+
+
+def _filter_cells(shards: dict, plan: osv.OverlapSavePlan, mesh: Mesh,
+                  shape, edge_left, edge_right, valid):
+    """The per-cell work of :func:`sharded_filter` on a [C, N] = ``shape``
+    signal: ``shards`` holds this process's cells' [C/D, N/T] slices (on
+    their devices, or on their way there). Halo exchange, then one filter
+    call a cell over its part of the ``valid`` region. Returns ``(parts,
+    peaks)``: {(i, j): y} and the cells' 0-d peaks, left on their devices
+    (reading one is the caller's choice of when to wait for the card)."""
+    extended = _halo_exchange(shards, plan.mo2, mesh, edge_left, edge_right)
+    parts, peaks = {}, []
+    for i, j in shards:
+        _, rows, _, cols = _block(mesh, shape, valid, i, j)
+        if rows == 0 or cols == 0:
+            continue
+        device = mesh.cells[i][j].device
+        y, p = osv.extended_filter_peak(extended[(i, j)][:rows].contiguous(),
+                                        osv.plan_for_device(plan, device), cols)
+        parts[(i, j)] = y
+        peaks.append(p)
+    return parts, peaks
+
+
+def _join(parts: dict, mesh: Mesh, shape, valid) -> torch.Tensor:
+    """The whole [C, N] = ``shape`` tensor of a local mesh's ``parts`` on
+    the device of cell (0, 0), zero outside the ``valid`` region."""
+    whole = torch.empty if valid == shape else torch.zeros
+    out = whole(shape, dtype=torch.float32, device=mesh.cells[0][0].device)
     for (i, j), y in parts.items():
-        r0, rows, s0, cols = _block(mesh, (c, n), valid, i, j)
+        r0, rows, s0, cols = _block(mesh, shape, valid, i, j)
         out[r0 : r0 + rows, s0 : s0 + cols] = y
-    return out, peak
+    return out
 
 
 def assemble(y: LocalShards, mesh: Mesh, dst: int = 0) -> np.ndarray | None:

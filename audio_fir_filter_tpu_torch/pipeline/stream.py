@@ -8,19 +8,35 @@ seams are exact and only the true signal edges are zero-padded. The output
 peak comes back with each segment (from the segment kernel, or reduced on
 the device on the block path), over that segment's valid samples only.
 
-Host <-> device copies are synchronous: each segment is copied up,
-filtered and copied back before the next. Overlapping them (pinned buffers,
-a side stream) is open work in ROADMAP.md.
+Every route keeps one segment in flight, as the JAX stream does with its
+``pending`` list (``audio_fir_filter_tpu/pipeline/stream.py:94-106``, the
+16-bit route ``:174-189``, the mesh ``:267-285``), where JAX's async
+dispatch overlaps host slicing of segment k + 1 with device compute of
+segment k. Here (:func:`_pipelined`) each segment is staged in one host
+copy into a pinned buffer (zeros at the true signal edges), uploaded with
+``non_blocking``, filtered on PyTorch's current stream, and copied back
+into a pinned buffer with ``non_blocking``, an event recorded after it.
+Segment k + 1 is dispatched before segment k is drained: the drain waits on
+k's event, copies into the output and only then reads k's peak. A pinned
+buffer is refilled two segments later, after the drain that waited for its
+copies. Nothing on the way reads a device value on the host before the
+drain, so the host's staging of k + 1 overlaps the card's work on k. A
+single-segment signal takes one plain synchronous call: there is nothing
+to overlap.
 """
 
 from __future__ import annotations
+
+import collections
+import functools
 
 import numpy as np
 import torch
 
 from ..ops import overlap_save as osv
 from ..ops import segment_filter as sf
-from ..parallel.sharded_conv import sharded_filter
+from ..parallel import sharded_conv
+from ..parallel.distributed import process_info
 
 
 def default_segment_len(plan: osv.OverlapSavePlan, target: int = 1 << 24,
@@ -41,17 +57,6 @@ def default_segment_len(plan: osv.OverlapSavePlan, target: int = 1 << 24,
     return (k + (k & 1)) * plan.hop
 
 
-def _edge_slice(x: np.ndarray, g0: int, g1: int) -> np.ndarray:
-    """x[:, g0:g1] with zeros outside [0, N) — one segment-sized buffer."""
-    c, n = x.shape
-    s0, s1 = max(0, g0), min(n, g1)
-    if s0 == g0 and s1 == g1:
-        return x[:, g0:g1]  # interior segment: a view, no copy
-    buf = np.zeros((c, g1 - g0), dtype=x.dtype)
-    buf[:, s0 - g0 : s1 - g0] = x[:, s0:s1]
-    return buf
-
-
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -59,6 +64,87 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def _segments(n: int, seg: int):
     for s in range(0, n, seg):
         yield s, min(n, s + seg)
+
+
+def _stage(dst: torch.Tensor, x: np.ndarray, g0: int) -> torch.Tensor:
+    """Fill host ``dst`` [C, W] with x[:, g0 : g0 + W], zeros outside
+    [0, N): a segment's one host copy, edge padding included."""
+    n, w = x.shape[1], dst.shape[1]
+    a = min(max(-g0, 0), w)          # first column inside the signal
+    b = min(max(n - g0, a), w)       # end of the columns inside it
+    dst[:, :a].zero_()
+    dst[:, a:b].copy_(torch.from_numpy(x[:, g0 + a : g0 + b]))
+    dst[:, b:].zero_()
+    return dst
+
+
+def _upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return t.to(device, non_blocking=True)
+
+
+def _host_buffer(slot: dict, pin: bool, key, shape, dtype) -> torch.Tensor:
+    """A contiguous [shape] host tensor of ``slot``, kept for the next
+    segment of the slot (pinned when ``pin``): a view of the first elements
+    of one flat buffer per key, so a short last segment reuses it."""
+    n = int(np.prod(shape, dtype=np.int64))
+    flat = slot.get(key)
+    if flat is None or flat.dtype != dtype or flat.numel() < n:
+        flat = slot[key] = torch.empty(max(n, 1), dtype=dtype, pin_memory=pin)
+    return flat[:n].view(shape)
+
+
+def _pipelined(segments, dispatch, out: np.ndarray, device: torch.device,
+               progress_cb) -> float:
+    """Run ``dispatch`` over ``segments`` with at most two segments in
+    flight, as the JAX stream's ``pending`` does (its ``stream.py:94-106``):
+    segment k + 1 is dispatched before segment k is drained into ``out``.
+
+    ``dispatch(s, e, buffer)`` stages segment [s, e) into host tensors from
+    ``buffer(key, shape, dtype)``, uploads them with :func:`_upload` and
+    launches; it returns ``(y, peak)`` on the device, where
+    ``y[:C, :e - s]`` is ``out[:, s:e]`` and ``peak`` a 0-d tensor. Both
+    are copied into host buffers without blocking and an event is recorded
+    after them; the drain waits on that event, then copies into ``out``,
+    reads the peak and reports ``C * (e - s)`` to ``progress_cb``. Returns
+    the largest peak.
+
+    Segment k uses the host buffers of slot k % 2. They are refilled for
+    segment k + 2 only after segment k's drain, whose event follows its
+    upload and download on the same stream. On a ``device`` that is the
+    CPU the same code runs on plain tensors, with no pinning and no
+    events. A failure raises; segments drained before it have been
+    reported to ``progress_cb``, later ones are not."""
+    pin = device.type == "cuda"
+    slots = ({}, {})
+    pending = collections.deque()
+    rows = out.shape[0]
+    out_t = torch.from_numpy(out)
+    peak = 0.0
+
+    def drain() -> float:
+        s, e, y, p, done = pending.popleft()
+        if done is not None:
+            done.synchronize()
+        out_t[:, s:e].copy_(y[:rows, : e - s])
+        if progress_cb:
+            progress_cb(rows * (e - s))
+        return float(p)
+
+    for k, (s, e) in enumerate(segments):
+        buffer = functools.partial(_host_buffer, slots[k % 2], pin)
+        y, p = dispatch(s, e, buffer)
+        y_host = buffer("y", y.shape, y.dtype).copy_(y, non_blocking=True)
+        p_host = buffer("peak", (), p.dtype).copy_(p, non_blocking=True)
+        done = None
+        if pin:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(y.device))
+        pending.append((s, e, y_host, p_host, done))
+        if len(pending) >= 2:
+            peak = max(peak, drain())
+    while pending:
+        peak = max(peak, drain())
+    return peak
 
 
 def filter_array_streamed(
@@ -91,15 +177,14 @@ def filter_array_streamed(
         return y.cpu().numpy(), float(peak)
 
     mo2 = plan.mo2
+
+    def dispatch(s, e, buffer):
+        xe = _stage(buffer("x", (c, e - s + 2 * mo2), torch.float32), x, s - mo2)
+        return osv.extended_filter_peak(_upload(xe, plan.device), plan, e - s)
+
     out = np.empty((c, n), dtype=np.float32)
-    peak = 0.0
-    for s, e in _segments(n, seg):
-        xe = _to_device(_edge_slice(x, s - mo2, e + mo2), plan.device)
-        yj, pj = osv.extended_filter_peak(xe, plan, e - s)
-        out[:, s:e] = yj.cpu().numpy()
-        peak = max(peak, float(pj))
-        if progress_cb:
-            progress_cb(c * (e - s))
+    peak = _pipelined(_segments(n, seg), dispatch, out, plan.device,
+                      progress_cb)
     return out, peak
 
 
@@ -137,19 +222,18 @@ def filter_array_streamed_i16(
 
     seg = segment_len or default_segment_len(plan, channels=c)
     mo2 = plan.mo2
+
+    def dispatch(s, e, buffer):
+        # One segment is the whole signal: the kernel pads its edges.
+        left = mo2 if (s, e) == (0, n) else 0
+        g0, g1 = s - mo2 + left, e + mo2 - left
+        xe = _stage(buffer("x", (c, g1 - g0), torch.int16), x16, g0)
+        return sf.segment_filter(_upload(xe, plan.device), plan, left, e - s,
+                                 i16_io=True)
+
     out = np.empty((c, n), dtype=np.int16)
-    peak = 0
-    for s, e in _segments(n, seg):
-        if s == 0 and e == n:
-            xe, left = _to_device(x16, plan.device), mo2
-        else:
-            xe = _to_device(_edge_slice(x16, s - mo2, e + mo2), plan.device)
-            left = 0
-        yj, pj = sf.segment_filter(xe, plan, left, e - s, i16_io=True)
-        out[:, s:e] = yj.cpu().numpy()
-        peak = max(peak, int(pj))
-        if progress_cb:
-            progress_cb(c * (e - s))
+    peak = int(_pipelined(_segments(n, seg), dispatch, out, plan.device,
+                          progress_cb))
     return out, peak, peak >= 32767
 
 
@@ -184,6 +268,9 @@ def sharded_filter_streamed(
     c, n = x.shape
     if n == 0:
         return x.copy(), 0.0
+    if not mesh.is_local(process_info()[0]):
+        raise ValueError("sharded_filter_streamed needs a mesh of this "
+                         "process's cells")
     d, t = mesh.shape
     mo2, quantum = plan.mo2, t * plan.hop
     seg = segment_len or default_segment_len(plan, channels=c)
@@ -201,16 +288,27 @@ def sharded_filter_streamed(
     else:
         x_in = x
 
+    cd, sh = cp // d, seg // t
+    dev0 = mesh.cells[0][0].device
+
+    def dispatch(s, e, buffer):
+        # Each cell's shard is staged on its own, so that every upload
+        # reads one contiguous pinned buffer.
+        shards = {}
+        for i in range(d):
+            for j in range(t):
+                shard = buffer(("shard", i, j), (cd, sh), torch.float32)
+                _stage(shard, x_in[i * cd : (i + 1) * cd], s + j * sh)
+                shards[(i, j)] = _upload(shard, mesh.cells[i][j].device)
+        left, right = (
+            _upload(_stage(buffer(side, (cp, mo2), torch.float32), x_in, g0),
+                    dev0)
+            for side, g0 in (("left", s - mo2), ("right", s + seg)))
+        valid = (c, e - s)
+        parts, peaks = sharded_conv._filter_cells(shards, plan, mesh, (cp, seg),
+                                                  left, right, valid)
+        y = sharded_conv._join(parts, mesh, (cp, seg), valid)
+        return y, torch.stack([p.to(dev0) for p in peaks]).amax()
+
     out = np.empty((c, n), dtype=np.float32)
-    peak = 0.0
-    for s, e in _segments(n, seg):
-        yj, pj = sharded_filter(
-            _edge_slice(x_in, s, s + seg), plan, mesh,
-            edge_left=_edge_slice(x_in, s - mo2, s),
-            edge_right=_edge_slice(x_in, s + seg, s + seg + mo2),
-            auto_scale=False, valid=(c, e - s))
-        out[:, s:e] = yj[:c, : e - s].cpu().numpy()
-        peak = max(peak, pj)
-        if progress_cb:
-            progress_cb(c * (e - s))
-    return out, peak
+    return out, _pipelined(_segments(n, seg), dispatch, out, dev0, progress_cb)

@@ -61,7 +61,12 @@ result line):
    reports are printed;
 11. ``--profile DIR`` through the CLI on file (a), counters zeroed before
    and read after: the Chrome trace exists and names the segment kernel's
-   passes (``cols_forward``, ``rows_multiply``, ``cols_inverse``).
+   passes (``cols_forward``, ``rows_multiply``, ``cols_inverse``); then
+   file (a)'s samples through ``filter_array_streamed`` under
+   ``torch.profiler`` in a ``record_function`` window: every host<->device
+   copy in it is a pinned one, and the device's busy share over the window
+   (the union of kernel and copy intervals) is printed, beside the
+   synchronous per-segment loop's.
 
 12. the mesh (``audio_fir_filter_tpu_torch/parallel``), counters zeroed
    before and read after each part: ``--mesh 1x1`` through the CLI on (a)
@@ -81,12 +86,23 @@ result line):
    ``bench --scaling`` in a subprocess (the model's table parsed, the
    measured halo cost printed); and ``--mesh 1x2`` through the CLI, which
    exits 1 naming 2 devices against 1.
+13. the segment pipeline (``pipeline/stream``: one segment in flight,
+   pinned buffers, ``non_blocking`` copies, events): each streamed route
+   byte-identical to the synchronous per-segment loop it replaced, peaks
+   and launch counts equal, on file (a) at the default segment, at 6 hops
+   (dozens of segments) and at 6 hops with a ``torch.cuda._sleep`` queued
+   before every launch; file (b) on the 16-bit route (default and 6 hops,
+   delayed); ``--engine fourstep`` f64 on (a) and f32 on (b); a (1, 2) mesh
+   of ``cuda:0`` cells on (a). Then the medians of three interleaved runs
+   of each of (a) and (b) pipelined and synchronous, the device memory
+   peak of each on (a), and the pinned buffers' allocation time in a fresh
+   process.
 
 The build phase also checks that the native PCM codec loaded (its g++
 build), so the host codec of phases 6-12 is the native one.
 
-``--skip 3,4,5,7,9,10,11`` (any of them) leaves phases out while a change
-is being worked on; such a run prints no result line.
+``--skip 3,4,5,7,9,10,11,12`` (any of them) leaves phases out while a
+change is being worked on; such a run prints no result line.
 
 Output: the phase reports, then a JSON line of per-kernel results (each
 row with its launches on its path, error against its plain version, its
@@ -1018,7 +1034,90 @@ def phase_profile(card: str, files: dict, tmp: Path) -> None:
     print(f"--profile (a) on {card}: {wall:.1f} s with the profiler, trace "
           f"{trace.stat().st_size / 1e6:.1f} MB, {len(events)} events; launches "
           f"{ {k: v for k, v in counts.items() if v} }; kernel passes (count, "
-          f"device us): {per_pass}")
+          f"device us): {per_pass}; host<->device copies in the whole run "
+          f"(count, MB) {_copies(events)}")
+    _profile_filter_window(card, files, tmp)
+
+
+MEMCPY = re.compile(r"Memcpy (HtoD|DtoH) \((\w+) -> (\w+)\)")
+WINDOW = "lowcut filter window"
+
+
+def _copies(events: list) -> dict:
+    """{CUPTI memcpy name: (count, MB)} of the host<->device copies."""
+    out = {}
+    for e in events:
+        if e.get("cat") == "gpu_memcpy" and MEMCPY.search(e.get("name", "")):
+            n, mb = out.get(e["name"], (0, 0.0))
+            mb += e.get("args", {}).get("bytes", 0) / 1e6
+            out[e["name"]] = (n + 1, round(mb, 3))
+    return out
+
+
+def _busy_share(events: list, t0: float, t1: float) -> tuple[float, list]:
+    """Share of [t0, t1] (trace us) covered by the union of device kernel,
+    memcpy and memset intervals, and those events (started in the
+    window)."""
+    dev = sorted((e for e in events if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and t0 <= float(e["ts"]) <= t1), key=lambda e: float(e["ts"]))
+    busy, end = 0.0, t0
+    for e in dev:
+        a = max(float(e["ts"]), end)
+        b = min(float(e["ts"]) + float(e.get("dur", 0.0)), t1)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy / (t1 - t0), dev
+
+
+def _profile_filter_window(card: str, files: dict, tmp: Path) -> None:
+    """File (a)'s samples through ``filter_array_streamed`` under
+    ``torch.profiler``, the call marked by a ``record_function`` window:
+    every host<->device copy in the window must be a pinned one. Prints the
+    device's busy share over the window (union of kernel and copy
+    intervals), beside the synchronous loop's under the same profiler."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from audio_fir_filter_tpu_torch import audio
+    from audio_fir_filter_tpu_torch.models import LowCut
+    from audio_fir_filter_tpu_torch.pipeline.stream import (
+        default_segment_len, filter_array_streamed)
+
+    xa = audio.read_audio(files["a"]).samples
+    plan = LowCut().plan(96000.0, precision="high", device="cuda")
+    seg = default_segment_len(plan, channels=2)
+    for tag, fn in (("pipelined", lambda: filter_array_streamed(xa, plan)),
+                    ("synchronous", lambda: sync_streamed(xa, plan, seg))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(WINDOW):
+                fn()
+        path = tmp / f"window_{tag}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        win = [e for e in events if e.get("name") == WINDOW
+               and e.get("cat") == "user_annotation"]
+        check(len(win) == 1, f"{tag}: {len(win)} filter windows in the trace")
+        t0 = float(win[0]["ts"])
+        t1 = t0 + float(win[0]["dur"])
+        share, dev = _busy_share(events, t0, t1)
+        copies = [e for e in dev if MEMCPY.search(e["name"])]
+        kinds = _copies(dev)
+        kernels = sum(float(e["dur"]) for e in dev if e["cat"] == "kernel")
+        host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+        print(f"filter window, (a) {tag}, under torch.profiler on {card}: "
+              f"{(t1 - t0) / 1e6:.4f} s, device busy {100 * share:.2f} % "
+              f"(kernels {kernels / 1e6:.4f} s), copies (count, MB) {kinds}; "
+              "host self time (calls, s): "
+              + ", ".join(f"{a.key} ({a.count}, {a.self_cpu_time_total / 1e6:.4f})"
+                          for a in host[:6]))
+        check(copies, f"{tag}: no host<->device copy in the filter window")
+        if tag == "pipelined":
+            check(all(MEMCPY.search(e["name"])[2 if "HtoD" in e["name"] else 3]
+                      == "Pinned" for e in copies),
+                  f"the pipelined filter made a copy that is not pinned: {kinds}")
 
 
 # ------------------------------------------------------------ phase 12: mesh
@@ -1377,14 +1476,263 @@ def phase_mesh(card: str, files: dict, single: dict, tmp: Path) -> dict:
     return counts
 
 
-SKIPPABLE = {3, 4, 5, 7, 9, 10, 11}
+# ------------------------------------------- phase 13: the segment pipeline
+
+SLEEP_CYCLES = 4_000_000    # ~2 ms of torch.cuda._sleep at the H100's clocks
+PIPE_HOPS = 6               # the many-segment runs: segments of 6 hops
+
+
+def _edge_slice(x: np.ndarray, g0: int, g1: int) -> np.ndarray:
+    """x[:, g0:g1] with zeros outside [0, N)."""
+    buf = np.zeros((x.shape[0], g1 - g0), x.dtype)
+    s0, s1 = max(0, g0), min(x.shape[1], g1)
+    if s1 > s0:
+        buf[:, s0 - g0 : s1 - g0] = x[:, s0:s1]
+    return buf
+
+
+def _segments(n: int, seg: int):
+    return [(s, min(n, s + seg)) for s in range(0, n, seg)]
+
+
+def sync_streamed(x: np.ndarray, plan, seg: int):
+    """The synchronous loop that ``filter_array_streamed`` ran before it
+    kept a segment in flight: each segment sliced on the host, copied up
+    from pageable memory, filtered, copied back and its peak read before
+    the next."""
+    from audio_fir_filter_tpu_torch.ops import overlap_save as osv
+
+    out, peak, mo2 = np.empty_like(x), 0.0, plan.mo2
+    for s, e in _segments(x.shape[1], seg):
+        xe = torch.from_numpy(_edge_slice(x, s - mo2, e + mo2)).to(plan.device)
+        y, p = osv.extended_filter_peak(xe, plan, e - s)
+        out[:, s:e] = y.cpu().numpy()
+        peak = max(peak, float(p))
+    return out, peak
+
+
+def sync_streamed_i16(x16: np.ndarray, plan, seg: int):
+    """The synchronous loop of ``filter_array_streamed_i16`` before."""
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+
+    c, n = x16.shape
+    out, peak, mo2 = np.empty_like(x16), 0, plan.mo2
+    for s, e in _segments(n, seg):
+        if (s, e) == (0, n):
+            xe, left = x16, mo2
+        else:
+            xe, left = _edge_slice(x16, s - mo2, e + mo2), 0
+        xd = torch.from_numpy(np.ascontiguousarray(xe)).to(plan.device)
+        y, p = sf.segment_filter(xd, plan, left, e - s, i16_io=True)
+        out[:, s:e] = y.cpu().numpy()
+        peak = max(peak, int(p))
+    return out, peak, peak >= 32767
+
+
+def sync_sharded(x: np.ndarray, plan, mesh, seg: int):
+    """The synchronous loop of ``sharded_filter_streamed`` before, at a
+    segment length already rounded by it (a multiple of t * hop)."""
+    from audio_fir_filter_tpu_torch.parallel import sharded_filter
+
+    c, n = x.shape
+    mo2 = plan.mo2
+    out, peak = np.empty_like(x), 0.0
+    for s, e in _segments(n, seg):
+        y, p = sharded_filter(_edge_slice(x, s, s + seg), plan, mesh,
+                              edge_left=_edge_slice(x, s - mo2, s),
+                              edge_right=_edge_slice(x, s + seg, s + seg + mo2),
+                              auto_scale=False, valid=(c, e - s))
+        out[:, s:e] = y[:c, : e - s].cpu().numpy()
+        peak = max(peak, p)
+    return out, peak
+
+
+@contextlib.contextmanager
+def _delayed_launches(cycles: int):
+    """A ``torch.cuda._sleep(cycles)`` queued before every launch of both
+    program kernels: each segment's kernel, and so its download, lands
+    later, so a drain that did not wait for its event would read a stale
+    pinned buffer."""
+    from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+
+    real = {sf: sf._launch, cb: cb._launch}
+
+    def delayed(launch):
+        def run(*args, **kwargs):
+            torch.cuda._sleep(cycles)
+            return launch(*args, **kwargs)
+        return run
+
+    for mod, launch in real.items():
+        mod._launch = delayed(launch)
+    try:
+        yield
+    finally:
+        for mod, launch in real.items():
+            mod._launch = launch
+
+
+def _timed_call(fn):
+    """(result, host seconds, launches made) of ``fn()``; the result is on
+    the host, so the card's work is done."""
+    before = _counts()
+    t0 = time.perf_counter()
+    r = fn()
+    wall = time.perf_counter() - t0
+    return r, wall, _delta(before)
+
+
+def _same(tag: str, piped, sync) -> None:
+    """Pipelined and synchronous results and launches must be equal."""
+    (ry, tp, mp), (rs, ts, ms) = piped, sync
+    check(bool(np.array_equal(ry[0], rs[0])),
+          f"{tag}: pipelined output differs from the synchronous loop's")
+    check(ry[1:] == rs[1:], f"{tag}: pipelined peak {ry[1:]} != {rs[1:]}")
+    check(mp == ms and mp, f"{tag}: launches {mp} pipelined, {ms} synchronous")
+    print(f"{tag}: byte-identical, peak {ry[1]}, launches {mp}; "
+          f"pipelined {tp:.3f} s, synchronous {ts:.3f} s")
+
+
+def worker_pin(frames: str) -> None:
+    """Subprocess: seconds to allocate, in a fresh process, the pinned
+    buffers that one streamed call of ``frames`` x 2 float32 frames a
+    segment takes (two slots of input with halos, two of output), then the
+    same four again from PyTorch's caching host allocator."""
+    from audio_fir_filter_tpu_torch.models import LowCut
+
+    plan = LowCut().plan(96000.0, precision="high", device="cuda")
+    seg = int(frames)
+    torch.zeros(1, device="cuda")
+    sizes = [2 * (seg + plan.m), 2 * (seg + plan.m), 2 * seg, 2 * seg]
+
+    def alloc():
+        t0 = time.perf_counter()
+        bufs = [torch.empty(n, dtype=torch.float32, pin_memory=True)
+                for n in sizes]
+        return time.perf_counter() - t0, bufs
+
+    first, bufs = alloc()
+    del bufs
+    again, _ = alloc()
+    print(json.dumps({"bytes": 4 * sum(sizes), "first_s": first,
+                      "cached_s": again}))
+
+
+def phase_pipeline(card: str, files: dict) -> None:
+    """Phase 13: the streamed routes keep one segment in flight. Each is
+    byte-identical to the synchronous loop it replaced, with equal launch
+    counts: file (a) at the default segment, at 6 hops (dozens of
+    segments) and at 6 hops with every launch delayed; file (b) on the
+    16-bit route at the default segment (one) and at 6 hops, delayed too;
+    ``--engine fourstep`` f64 on (a) and f32 on (b) at 6 hops; a (1, 2)
+    mesh of cuda:0 cells on (a). Then three interleaved timings of
+    pipelined and synchronous ``filter`` on (a) (default segment and 6
+    hops) and (b), device memory, and the pinned allocation in a fresh
+    process."""
+    from audio_fir_filter_tpu_torch import audio
+    from audio_fir_filter_tpu_torch.models import LowCut
+    from audio_fir_filter_tpu_torch.parallel import make_mesh
+    from audio_fir_filter_tpu_torch.pipeline.stream import (
+        default_segment_len, filter_array_streamed, filter_array_streamed_i16,
+        sharded_filter_streamed)
+
+    t_phase = time.perf_counter()
+    xa = audio.read_audio(files["a"]).samples
+    xb = audio.read_audio(files["b"]).samples
+    xb16 = np.asarray(xb * np.float32(32768.0), np.int16)
+    high = LowCut().plan(96000.0, precision="high", device="cuda")
+    fast = LowCut().plan(44100.0, precision="fast", device="cuda")
+    seg_a = default_segment_len(high, channels=2)
+    seg_b = default_segment_len(fast, channels=2)
+    six_a, six_b = PIPE_HOPS * high.hop, PIPE_HOPS * fast.hop
+    print(f"(a) {xa.shape[1]} frames: default segment {seg_a} frames "
+          f"({len(_segments(xa.shape[1], seg_a))} segments), 6 hops {six_a} "
+          f"({len(_segments(xa.shape[1], six_a))}); (b) {xb.shape[1]} frames: "
+          f"default {seg_b} ({len(_segments(xb.shape[1], seg_b))}), 6 hops "
+          f"({len(_segments(xb.shape[1], six_b))})")
+
+    runs = [
+        ("(a) high", lambda: filter_array_streamed(xa, high),
+         lambda: sync_streamed(xa, high, seg_a), False),
+        ("(a) high, 6 hops", lambda: filter_array_streamed(xa, high, six_a),
+         lambda: sync_streamed(xa, high, six_a), False),
+        ("(a) high, 6 hops, launches delayed",
+         lambda: filter_array_streamed(xa, high, six_a),
+         lambda: sync_streamed(xa, high, six_a), True),
+        ("(b) i16", lambda: filter_array_streamed_i16(xb16, fast),
+         lambda: sync_streamed_i16(xb16, fast, seg_b), False),
+        ("(b) i16, 6 hops, launches delayed",
+         lambda: filter_array_streamed_i16(xb16, fast, six_b),
+         lambda: sync_streamed_i16(xb16, fast, six_b), True),
+    ]
+    four_a = LowCut().plan(96000.0, precision="high", device="cuda",
+                           engine="fourstep")
+    four_b = LowCut().plan(44100.0, precision="fast", device="cuda",
+                           engine="fourstep")
+    seg_fa = default_segment_len(four_a, channels=2)
+    runs += [
+        ("(a) fourstep f64", lambda: filter_array_streamed(xa, four_a),
+         lambda: sync_streamed(xa, four_a, seg_fa), False),
+        ("(b) fourstep f32, 6 hops", lambda: filter_array_streamed(
+            xb, four_b, PIPE_HOPS * four_b.hop),
+         lambda: sync_streamed(xb, four_b, PIPE_HOPS * four_b.hop), False),
+    ]
+    mesh = make_mesh((1, 2), [torch.device("cuda", 0)] * 2)
+    quantum = 2 * high.hop
+    seg_m = -(-seg_a // quantum) * quantum
+    runs.append(("(a) mesh (1, 2) of cuda:0 cells",
+                 lambda: sharded_filter_streamed(xa, high, mesh),
+                 lambda: sync_sharded(xa, high, mesh, seg_m), False))
+    for tag, piped, sync, delayed in runs:
+        with _delayed_launches(SLEEP_CYCLES) if delayed else contextlib.nullcontext():
+            _same(tag, _timed_call(piped), _timed_call(sync))
+
+    # Interleaved timings of filter (host clock, results on the host).
+    timed = {"(a)": (lambda: filter_array_streamed(xa, high),
+                     lambda: sync_streamed(xa, high, seg_a)),
+             "(a), 6 hops": (lambda: filter_array_streamed(xa, high, six_a),
+                             lambda: sync_streamed(xa, high, six_a)),
+             "(b) i16": (lambda: filter_array_streamed_i16(xb16, fast),
+                         lambda: sync_streamed_i16(xb16, fast, seg_b))}
+    for tag, (piped, sync) in timed.items():
+        t = {"pipelined": [], "synchronous": []}
+        for order in ("ps", "sp", "ps"):
+            for side in order:
+                name = "pipelined" if side == "p" else "synchronous"
+                t[name].append(_timed_call(piped if side == "p" else sync)[1])
+        print(f"filter {tag} on {card}: pipelined median "
+              f"{np.median(t['pipelined']):.4f} s {t['pipelined']}, "
+              f"synchronous median {np.median(t['synchronous']):.4f} s "
+              f"{t['synchronous']}")
+
+    for tag, fn in (("pipelined", lambda: filter_array_streamed(xa, high)),
+                    ("synchronous", lambda: sync_streamed(xa, high, seg_a))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn()
+        print(f"(a) {tag}: device memory peak "
+              f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} GB above "
+              f"the {held / 1e9:.3f} GB held before (earlier phases' tables)")
+
+    (out, _), = _workers([[sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--worker", "pin", str(seg_a)]], "pin worker")
+    r = json.loads(out.strip().splitlines()[-1])
+    print(f"pinned buffers of one streamed call of (a) in a fresh process on "
+          f"{card}: {r['bytes'] / 1e6:.1f} MB in {r['first_s']:.4f} s, "
+          f"again from the caching host allocator {r['cached_s']:.6f} s")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+SKIPPABLE = {3, 4, 5, 7, 9, 10, 11, 12}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip", default="",
-                    help="phases to leave out, of 3,4,5,7,9,10,11 (no result "
-                         "line is printed)")
+                    help="phases to leave out, of 3,4,5,7,9,10,11,12 (no "
+                         "result line is printed)")
     ap.add_argument("--worker", nargs="+", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
@@ -1392,6 +1740,8 @@ def main(argv=None) -> int:
         kind, *rest = args.worker
         if kind == "nccl":
             worker_nccl(*rest)
+        elif kind == "pin":
+            worker_pin(*rest)
         else:
             worker_halo(int(rest[0]), int(rest[1]), rest[2])
         return 0
@@ -1420,7 +1770,9 @@ def main(argv=None) -> int:
             phase_bench(env["card"])
         if 11 not in skip:
             phase_profile(env["card"], files, tmp)
-        mesh = phase_mesh(env["card"], files, single, tmp)
+        if 12 not in skip:
+            mesh = phase_mesh(env["card"], files, single, tmp)
+        phase_pipeline(env["card"], files)
     if skip:
         print(f"partial run: phases {sorted(skip)} skipped; no result line")
         return 0
