@@ -1,5 +1,6 @@
 """What the card probes share: the device rule, launching a probe entry
-point, timing, error checks and the table printer."""
+point, timing, the library convolution, error checks and the table
+printer."""
 
 from __future__ import annotations
 
@@ -45,6 +46,14 @@ def launch(lib_name: str, entry: str, device: torch.device, *args) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+
+
+def bench_taps(freq: float = 15.0, slope: float = 10.0, fs: float = 96000.0):
+    """The bench's low-cut taps; by default its headline's: 96 kHz,
+    ``-f 15 -s 10`` (M = 38,400)."""
+    from ..ops import kernel_design as kd
+
+    return kd.WindowedSinc(freq / fs, slope / fs).make_low_cut().taps
 
 
 def ptr(t: torch.Tensor | None) -> int | None:
@@ -97,6 +106,48 @@ def host_us_per_call(fn, k: int = 200) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / k * 1e6
+
+
+def library_conv(x: torch.Tensor, taps, precision: str, left: int,
+                 out_len: int):
+    """The one PyTorch call that computes the segment filter's function
+    ``y[:, o] = sum_k taps[k] x[:, o + k - left]`` (a cross-correlation
+    with the taps, x zero outside it), as a callable that returns y
+    [C, 1, out_len]: ``F.conv1d`` in the plan's precision (``"high"``:
+    float64)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    dt = torch.float64 if precision == "high" else torch.float32
+    right = out_len + len(taps) - 1 - left - x.shape[1]
+    xc = x.to(dt)[:, None, :]
+    pad = left
+    if left != right:
+        xc, pad = F.pad(xc, (left, right)), 0
+    w = torch.from_numpy(np.asarray(taps, np.float64)).to(x.device, dt)[None, None]
+    return lambda: F.conv1d(xc, w, padding=pad)
+
+
+def library_conv_ms(x: torch.Tensor, taps, precision: str, left: int,
+                    out_len: int, want: torch.Tensor) -> tuple[float, float]:
+    """(ms, max |y - want|) of :func:`library_conv` on the card, TF32 off.
+    A first call slower than 2 s is its own time (host clock,
+    synchronized); otherwise the median device time of 3 calls."""
+    conv = library_conv(x, taps, precision, left, out_len)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        y = conv()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        err = max(float((y[c, 0].double() - want[c].double()).abs().max())
+                  for c in range(y.shape[0]))
+        del y
+        ms = first * 1e3 if first > 2.0 else event_ms(conv, reps=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return ms, err
 
 
 def gbps(nbytes: float, ms: float) -> float:

@@ -24,10 +24,10 @@ have no counterpart: nothing on the card transposes. On the card the
 probe's library instantiates B = 2^16 .. 2^20 only (the sweep's shapes; a
 short build); another B raises, the plain versions take any.
 
-The segment kernel's passes (``cols_forward``, ``rows_multiply``,
-``cols_inverse`` in ``csrc/segment_filter.cu``) are timed from
-``torch.profiler`` over the shipped launch at the main path's shape
-(2 x 30 s at 96 kHz, B = 2^18, M = 38,400), f32 and f64.
+The segment kernel's passes (``cols_forward`` and ``cols_inverse`` in
+``csrc/segment_filter.cuh``, ``rows_multiply`` in ``csrc/fourstep.cuh``)
+are timed from ``torch.profiler`` over the shipped launch at the main
+path's shape (2 x 30 s at 96 kHz, B = 2^18, M = 38,400), f32 and f64.
 """
 
 from __future__ import annotations
@@ -270,15 +270,17 @@ def pass_bytes(name: str, b: int, pairs: int, cx: int) -> int:
     return data * pairs + tables
 
 
-def segment_passes(device, precision: str, reps: int = 5) -> dict:
+def segment_passes(device, precision: str, reps: int = 5,
+                   frames: int = 30 * 96000) -> dict:
     """Device microseconds per launch of the segment kernel's three passes
-    (torch.profiler over ``reps`` shipped calls) at 2 x 30 s, 96 kHz,
-    B = 2^18, M = 38,400. Empty if the profiler saw no device time."""
+    (torch.profiler over ``reps`` shipped calls) on 2 channels of
+    ``frames`` at 96 kHz (2 x 30 s by default), B = 2^18, M = 38,400.
+    Empty if the profiler saw no device time."""
     from ..models import LowCut
 
     plan = LowCut(freq=15.0, slope=10.0).plan(96000.0, precision=precision,
                                               device=device)
-    n = 30 * 96000
+    n = frames
     g = torch.Generator(device=device).manual_seed(n)
     x = torch.rand((2, n), generator=g, device=device) - 0.5
     sf.segment_filter(x, plan, plan.mo2, n)

@@ -61,6 +61,13 @@ FAMILIES = {
         # z, out, table, batch, case, param, stream
         [_p, _p, _p, _ll, _i, _i, _p],
     ),
+    "probe_segment": (
+        ("lowcut_probe_segment_f32", "lowcut_probe_segment_f64",
+         "lowcut_probe_segment_i16"),
+        # the segment filter's arguments, then variant, stream
+        [_p, _p, _p, _p, _p, _p, _p, _p, _i, _ll, _ll, _ll, _i, _i, _i, _ll,
+         _i, _p],
+    ),
 }
 
 

@@ -196,17 +196,39 @@ def segment_filter(x: torch.Tensor, plan, left: int, out_len: int,
     return _launch(x, plan, left, out_len, i16_io)
 
 
+def mode_of(plan, i16_io: bool = False) -> str:
+    """The kernel mode of a call: ``i16``, ``f64`` (a ``high`` plan) or
+    ``f32``."""
+    if i16_io:
+        return "i16"
+    return "f64" if plan.precision == HIGH else "f32"
+
+
 def _launch(x, plan, left, out_len, i16_io):
+    mode = mode_of(plan, i16_io)
+    c = x.shape[0]
+    y = torch.empty((c, out_len), dtype=x.dtype, device=x.device)
+    peak = torch.zeros((), dtype=torch.float32, device=x.device)
+    if c == 0 or out_len == 0:
+        return y, peak
+    run_entry("segment_filter", f"lowcut_segment_filter_{mode}", x, y, peak,
+              plan, left, out_len)
+    launches[mode] += 1
+    return y, peak
+
+
+def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
+              *extra) -> None:
+    """Launch ``entry`` of ``csrc/<lib>.cu`` on x's device with the segment
+    filter's arguments (its tables, a scratch chunk, the split) and
+    ``extra`` before the stream: the shipped kernel, or the ablation probe
+    (``csrc/probe_segment.cu``, which adds a variant id). Raises if the
+    launch failed."""
     from . import _build
 
-    mode = "i16" if i16_io else ("f64" if plan.precision == HIGH else "f32")
     dev = x.device
     c, n_in = x.shape
     b, m = plan.block_size, plan.m
-    y = torch.empty((c, out_len), dtype=x.dtype, device=dev)
-    peak = torch.zeros((), dtype=torch.float32, device=dev)
-    if c == 0 or out_len == 0:
-        return y, peak
     H = plan.H
     if H.shape != split_shape(b) or not H.is_contiguous():
         raise ValueError(f"plan spectrum must be contiguous {split_shape(b)}")
@@ -216,19 +238,16 @@ def _launch(x, plan, left, out_len, i16_io):
     chunk = scratch_pairs(pairs, b, H.element_size())
     scratch = torch.empty((chunk, b), dtype=H.dtype, device=dev)
     l1, l2 = split(b)
-    fn = getattr(_build.library("segment_filter"),
-                 f"lowcut_segment_filter_{mode}")
+    fn = getattr(_build.library(lib), entry)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), peak.data_ptr(), H.data_ptr(),
                 tw4.data_ptr(), w1.data_ptr(), w2.data_ptr(),
                 scratch.data_ptr(), c, n_in, out_len, left, m, l1, l2,
-                chunk, stream)
+                chunk, *extra, stream)
     if rc != 0:
-        raise RuntimeError(f"segment filter kernel ({mode}) failed: "
+        raise RuntimeError(f"segment filter kernel {entry} failed: "
                            f"CUDA error {rc}")
-    launches[mode] += 1
-    return y, peak
 
 
 def reference(x: torch.Tensor, plan, left: int, out_len: int,

@@ -9,10 +9,19 @@ The manifest is the checkpoint; there is no other state.
 Its fingerprint is the port's own (:func:`options_fingerprint`): a manifest
 written by the JAX package, or by the port with other output-relevant
 settings, never makes the port skip a file.
+
+Several processes of one batch (``--num-processes``) share the manifest, so
+a write merges: under an exclusive ``flock`` on ``.lowcut_manifest.json.lock``
+beside it, it reads the file again, takes the union of its ``done`` entries
+with the same fingerprint and its own, and replaces the file with the
+union. The JAX package rewrites the file from its own entries, and the last
+of several writers drops the others' (a rerun then filters those files
+again); the port does not copy that.
 """
 
 from __future__ import annotations
 
+import fcntl
 import json
 import os
 import tempfile
@@ -35,15 +44,19 @@ class BatchManifest:
     def __init__(self, dest_dir: Path, options_fingerprint: str):
         self.path = Path(dest_dir) / MANIFEST_NAME
         self.fingerprint = options_fingerprint
-        self.done: dict[str, bool] = {}
         self._lock = threading.Lock()
-        if self.path.exists():
-            try:
-                data = json.loads(self.path.read_text())
-                if data.get("options") == options_fingerprint:
-                    self.done = dict(data.get("done", {}))
-            except (json.JSONDecodeError, OSError):
-                pass  # corrupt manifest: start fresh
+        self.done: dict[str, bool] = self._read()
+
+    def _read(self) -> dict[str, bool]:
+        """The ``done`` entries on disk under this fingerprint; none if the
+        file is missing, corrupt or of other settings."""
+        try:
+            data = json.loads(self.path.read_text())
+        except (OSError, json.JSONDecodeError):
+            return {}  # no manifest yet, or a corrupt one: start fresh
+        if data.get("options") != self.fingerprint:
+            return {}
+        return dict(data.get("done", {}))
 
     def is_done(self, input_path) -> bool:
         with self._lock:
@@ -55,20 +68,26 @@ class BatchManifest:
             self._flush()
 
     def _flush(self) -> None:
-        # Unique temp name + atomic replace (lock held by callers).
-        fd, tmp = tempfile.mkstemp(dir=str(self.path.parent),
-                                   prefix=".lowcut_manifest_")
-        try:
-            with os.fdopen(fd, "w") as f:
-                json.dump({"options": self.fingerprint, "done": self.done},
-                          f, indent=1)
-            os.replace(tmp, self.path)
-        except BaseException:
+        # Merge with what other processes wrote, then a unique temp name +
+        # atomic replace, all under the lock file (the thread lock is held
+        # by callers).
+        lock = self.path.with_name(MANIFEST_NAME + ".lock")
+        with open(lock, "a") as lf:
+            fcntl.flock(lf, fcntl.LOCK_EX)
+            self.done = {**self._read(), **self.done}
+            fd, tmp = tempfile.mkstemp(dir=str(self.path.parent),
+                                       prefix=".lowcut_manifest_")
             try:
-                os.unlink(tmp)
-            except OSError:
-                pass
-            raise
+                with os.fdopen(fd, "w") as f:
+                    json.dump({"options": self.fingerprint, "done": self.done},
+                              f, indent=1)
+                os.replace(tmp, self.path)
+            except BaseException:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+                raise
 
 
 def options_fingerprint(opts, device) -> str:

@@ -9,8 +9,8 @@ result line):
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; a CUDA card is required;
 2. build: one nvcc per kernel source (segment filter, block convolution,
-   and the probes' floors, phases and stages), all started together, from
-   the checkout;
+   and the probes' floors, phases, stages and segment ablations), all
+   started together, from the checkout;
 3. segment kernel vs its plain PyTorch version on the card at the main
    path's shapes (2 channels, 30 s of audio, B = 2^18): high (M = 38,400 at
    96 kHz), fast (M = 38,400) and i16 (M = 17,640 at 44.1 kHz) — error,
@@ -47,10 +47,18 @@ result line):
    the file present, filters only the rest (the launch counts show it);
 9. the probes of ``audio_fir_filter_tpu_torch/experiments/`` (the card
    counterparts of the TPU probes in ``experiments/``): each probe kernel
-   against its plain version (bitwise for the copies, the stated tolerance
-   otherwise), then, with the launch counters zeroed before and read
-   after, each probe's sweep through its ``run`` entry point, printing the
-   decomposition tables; every probe kernel must have launched;
+   against its plain version (bitwise for the copies, the zero and shift
+   variants, the stated tolerance otherwise), then, with the launch
+   counters zeroed before and read after, each probe's sweep through its
+   ``run`` entry point, printing the decomposition tables; every probe
+   kernel must have launched. ``fast_decomp_r05`` holds the segment
+   kernel's seven ablation variants (``csrc/probe_segment.cu``) each
+   against its plain version at 2 x 30 s, then times them at the bench's
+   headline and fast16 shapes and at 2 x 30 s (failing a variant that
+   beats its own traffic at 3.35 TB/s where the scratch streams through
+   device memory), holds ``full`` bitwise against the shipped kernel at
+   the headline, and times the shipped passes there under
+   ``torch.profiler``;
 10. the bench contract as a user runs it, ``python3 -m
    audio_fir_filter_tpu_torch.bench`` in subprocesses: ``--fidelity
    --roofline --all --reps 3``, then ``--engine fourstep --reps 3 --e2e
@@ -97,11 +105,20 @@ result line):
    of each of (a) and (b) pipelined and synchronous, the device memory
    peak of each on (a), and the pinned buffers' allocation time in a fresh
    process.
+14. the breakdown scripts of ``audio_fir_filter_tpu_torch/experiments/``,
+   counters zeroed before and read after: ``segment_decomp`` (the
+   headline call stage by stage on both engines, the block path's stages
+   bitwise against its whole call), ``chunk_sweep`` (the block kernel on
+   8-64 real blocks and the block path's headline call at each
+   ``conv_chunk``, beside the segment kernel), both engines' kernels must
+   have launched; then ``batch_cfg4``, the 64-file batch through
+   ``bin/lowcut-torch`` in a subprocess (exit 0, 64 outputs, a metrics line
+   each). Their tables are printed.
 
 The build phase also checks that the native PCM codec loaded (its g++
 build), so the host codec of phases 6-12 is the native one.
 
-``--skip 3,4,5,7,9,10,11,12`` (any of them) leaves phases out while a
+``--skip 3,4,5,7,9,10,11,12,14`` (any of them) leaves phases out while a
 change is being worked on; such a run prints no result line.
 
 Output: the phase reports, then a JSON line of per-kernel results (each
@@ -164,6 +181,10 @@ PROBE_ROWS = {
     **{f"probe_stages2_{m}": (_CSRC + "probe_stages.cu",
                               "experiments/mosaic_stages2.py:50")
        for m in ("f32", "f64")},
+    # The fused segment kernel's pallas_call under LOWCUT_ABLATE (:124-155).
+    **{f"probe_segment_{m}": (_CSRC + "probe_segment.cu",
+                              "audio_fir_filter_tpu/ops/pallas_fft.py:622")
+       for m in ("f32", "f64", "i16")},
 }
 EXCERPT = 4096
 
@@ -258,10 +279,12 @@ def _ptxas_summary(log: str) -> str:
 def _probe_modules() -> tuple:
     from audio_fir_filter_tpu_torch.experiments import (
         copy_floor_probe, dispatch_floor_probe, dma_bw_micro,
-        fused_phase_decomp, mosaic_stages, mosaic_stages2, pallas_micro)
+        fast_decomp_r05, fused_phase_decomp, mosaic_stages, mosaic_stages2,
+        pallas_micro)
 
     return (dispatch_floor_probe, dma_bw_micro, copy_floor_probe,
-            fused_phase_decomp, pallas_micro, mosaic_stages, mosaic_stages2)
+            fused_phase_decomp, pallas_micro, mosaic_stages, mosaic_stages2,
+            fast_decomp_r05)
 
 
 def _zero_counts() -> None:
@@ -313,6 +336,7 @@ def _signal(fs: float, seconds: float, rng) -> np.ndarray:
 
 
 def phase_kernels() -> dict:
+    from audio_fir_filter_tpu_torch.experiments._probe import library_conv_ms
     from audio_fir_filter_tpu_torch.models import LowCut
     from audio_fir_filter_tpu_torch.ops import roofline
     from audio_fir_filter_tpu_torch.ops import segment_filter as sf
@@ -374,7 +398,7 @@ def phase_kernels() -> dict:
         check(worst <= 1.0, f"{mode}: oracle excerpt {worst} LSB@{bits} > 1")
         lib_ms = None
         if not i16:
-            lib_ms, lib_err = _library_conv_ms(xd, taps, precision, yp)
+            lib_ms, lib_err = library_conv_ms(xd, taps, precision, plan.mo2, n, yp)
             print(f"library {mode}: F.conv1d (cuDNN, TF32 off) {lib_ms:.3f} ms, "
                   f"max abs diff from the plain version {lib_err:.3e}")
         w = roofline.work(plan, 2, n, n, sample_bytes=2 if i16 else 4)
@@ -382,35 +406,6 @@ def phase_kernels() -> dict:
                          "plain_ms": plain_ms, **roofline.bound_keys(w),
                          "library_ms": lib_ms}
     return results
-
-
-def _library_conv_ms(xd: torch.Tensor, taps, precision: str,
-                     plain: torch.Tensor) -> tuple[float, float]:
-    """(ms, max |y - plain|) of the one PyTorch call that computes the
-    segment filter's function: ``F.conv1d`` (a cross-correlation with the
-    taps, zero 'same' padding) in the plan's precision, with TF32 off. A
-    first call slower than 2 s is its own time (host clock, synchronized);
-    otherwise the median of 3 timed calls."""
-    import torch.nn.functional as F
-
-    dt = torch.float64 if precision == "high" else torch.float32
-    x = xd.to(dt)[:, None, :]
-    w = torch.from_numpy(np.asarray(taps, np.float64)).to(xd.device, dt)[None, None]
-    pad = (len(taps) - 1) // 2
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        t0 = time.perf_counter()
-        y = F.conv1d(x, w, padding=pad)
-        torch.cuda.synchronize()
-        first = time.perf_counter() - t0
-        err = float((y[:, 0].double() - plain.double()).abs().max())
-        del y
-        ms = first * 1e3 if first > 2.0 else _time_ms(
-            lambda: F.conv1d(x, w, padding=pad), reps=3)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    return ms, err
 
 
 def phase_edge_shapes() -> None:
@@ -904,7 +899,8 @@ def phase_batch(card: str, files: dict, single: dict, tmp: Path) -> dict:
     rc, err = _cli_rc(argv2)
     check(rc == 1 and "not found" in err.lower(),
           f"batch with a missing file exited {rc}: {err}")
-    written = sorted(p.name for p in dest2.iterdir() if p.name != MANIFEST_NAME)
+    written = sorted(p.name for p in dest2.iterdir()
+                     if not p.name.startswith(MANIFEST_NAME))
     check(written == sorted([files["d"].name, files["b"].name]),
           f"after the abort {written} are written")
     done = json.loads((dest2 / MANIFEST_NAME).read_text())["done"]
@@ -1725,14 +1721,40 @@ def phase_pipeline(card: str, files: dict) -> None:
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
-SKIPPABLE = {3, 4, 5, 7, 9, 10, 11, 12}
+# ------------------------------------------- phase 14: the breakdown scripts
+
+def phase_breakdown(card: str, tmp: Path) -> None:
+    """Phase 14: ``segment_decomp`` and ``chunk_sweep`` in-process at the
+    bench's headline shape (both engines' kernels must launch), then
+    ``batch_cfg4``'s 64-file batch through the CLI in a subprocess."""
+    from audio_fir_filter_tpu_torch.experiments import (batch_cfg4,
+                                                        chunk_sweep,
+                                                        segment_decomp)
+
+    t0 = time.perf_counter()
+    _zero_counts()
+    for mod in (segment_decomp, chunk_sweep):
+        print("\n".join(mod.run("cuda", reps=3)["lines"]))
+    counts = _counts()
+    print(f"breakdown launches on {card}: { {k: v for k, v in counts.items() if v} }")
+    for k in ("segment_filter_f64", "segment_filter_f32", "conv_blocks_f64",
+              "conv_blocks_f32"):
+        check(counts[k] > 0, f"kernel {k} never launched by the breakdown scripts")
+    r = batch_cfg4.run(tmp / "cfg4", "cuda")
+    check(r["outputs"] == batch_cfg4.N_FILES,
+          f"batch_cfg4 wrote {r['outputs']} outputs")
+    print("\n".join(r["lines"]))
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+
+SKIPPABLE = {3, 4, 5, 7, 9, 10, 11, 12, 14}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip", default="",
-                    help="phases to leave out, of 3,4,5,7,9,10,11,12 (no "
-                         "result line is printed)")
+                    help="phases to leave out, of 3,4,5,7,9,10,11,12,14 "
+                         "(no result line is printed)")
     ap.add_argument("--worker", nargs="+", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
@@ -1773,6 +1795,8 @@ def main(argv=None) -> int:
         if 12 not in skip:
             mesh = phase_mesh(env["card"], files, single, tmp)
         phase_pipeline(env["card"], files)
+        if 14 not in skip:
+            phase_breakdown(env["card"], tmp)
     if skip:
         print(f"partial run: phases {sorted(skip)} skipped; no result line")
         return 0

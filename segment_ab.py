@@ -1,0 +1,125 @@
+"""The shipped segment kernel of two checkouts of the repository, held
+against each other on one card.
+
+    python3 segment_ab.py OTHER_ROOT
+
+For a change that must leave the shipped kernel as it was (a refactor of
+``csrc/``), run from this checkout's root with another checkout (say, the
+parent commit unpacked by ``git archive``) as ``OTHER_ROOT``. Both
+checkouts build their ``segment_filter`` library at once; then one child
+process per turn, in the order other, this, this, other, with the turn's
+checkout as its working directory, imports that checkout's package and
+``chip_smoke.py`` and prints:
+
+- the ``ptxas`` summary line of its build (``chip_smoke._ptxas_summary``);
+- the sha256 of the kernel's output and peak on chip_smoke's phase-3 calls
+  (the seeded 2 x 30 s inputs: f64 and f32 at 96 kHz, i16 at 44.1 kHz);
+- the sha256 of file (a) (chip_smoke's 10-minute 96 kHz 24-bit WAV, made
+  once here) filtered through the CLI;
+- the median device ms of each phase-3 call (``chip_smoke._time_ms``).
+
+It fails unless every turn's hashes and ``ptxas`` lines are equal, and
+prints each turn's times: a difference between the two checkouts reads
+only against the spread of one checkout's two turns.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import textwrap
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+_BUILD = ("import sys; sys.path.insert(0, '.'); "
+          "from audio_fir_filter_tpu_torch.ops import _build; "
+          "_build.build('segment_filter', force=True)")
+
+_TURN = textwrap.dedent("""
+    import hashlib, json, sys
+    sys.path.insert(0, ".")
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from audio_fir_filter_tpu_torch.cli import main as cli
+    from audio_fir_filter_tpu_torch.models import LowCut
+    from audio_fir_filter_tpu_torch.ops import _build
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+
+    log = (_build.BUILD_DIR / "segment_filter.ptxas.log").read_text()
+    out = {"root": str(__import__("pathlib").Path(".").resolve()),
+           "ptxas": cs._ptxas_summary(log), "sha": {}, "ms": {}}
+    rng = np.random.default_rng(cs.SEED)
+    for mode, precision, fs, i16, _ in cs.MODES:
+        plan = LowCut(freq=15.0, slope=10.0).plan(fs, precision=precision,
+                                                  device="cuda")
+        x = cs._signal(fs, 30.0, rng)
+        if i16:
+            x = np.clip(np.rint(x * 32768), -32768, 32767).astype(np.int16)
+        xd = torch.from_numpy(x).cuda()
+        n = x.shape[1]
+        y, pk = sf.segment_filter(xd, plan, plan.mo2, n, i16_io=i16)
+        out["sha"][mode] = hashlib.sha256(
+            y.cpu().numpy().tobytes() + pk.cpu().numpy().tobytes()).hexdigest()
+        out["ms"][mode] = cs._time_ms(
+            lambda: sf.segment_filter(xd, plan, plan.mo2, n, i16_io=i16))
+    assert cli([sys.argv[1], sys.argv[2], "-O"]) == 0
+    with open(sys.argv[2], "rb") as f:
+        out["sha"]["file (a)"] = hashlib.sha256(f.read()).hexdigest()
+    print(json.dumps(out))
+""")
+
+
+def _turn(root: Path, file_a: Path, out: Path) -> dict:
+    r = subprocess.run([sys.executable, "-c", _TURN, str(file_a), str(out)],
+                       cwd=root, capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise RuntimeError(f"turn in {root} exited {r.returncode}: "
+                           f"{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def run(other: Path) -> list[str]:
+    """The four turns; raises unless both checkouts agree. Returns the
+    printed lines."""
+    import chip_smoke as cs
+
+    other = Path(other).resolve()
+    roots = (other, ROOT, ROOT, other)
+    with ThreadPoolExecutor(2) as pool:
+        for r in pool.map(lambda root: subprocess.run(
+                [sys.executable, "-c", _BUILD], cwd=root, capture_output=True,
+                text=True, timeout=900), (other, ROOT)):
+            if r.returncode != 0:
+                raise RuntimeError(f"build failed: {r.stderr[-3000:]}")
+    with tempfile.TemporaryDirectory(prefix="lowcut_ab_") as tmp:
+        file_a = cs.make_inputs(Path(tmp))["a"]
+        turns = [_turn(root, file_a, Path(tmp) / f"a_{i}.wav")
+                 for i, root in enumerate(roots)]
+    lines = [f"turn {i}: {t['root']}: ptxas segment_filter: {t['ptxas']}; ms "
+             + ", ".join(f"{k} {v:.4f}" for k, v in t["ms"].items())
+             for i, t in enumerate(turns)]
+    for key in ("ptxas", "sha"):
+        if any(t[key] != turns[0][key] for t in turns):
+            raise RuntimeError(f"the checkouts differ in {key}:\n"
+                               + "\n".join(lines + [json.dumps(t[key]) for t in turns]))
+    lines.append("outputs byte-identical in every turn ("
+                 + ", ".join(turns[0]["sha"]) + "); ptxas lines equal")
+    return lines
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 1:
+        print(__doc__.split("\n\n")[1].strip(), file=sys.stderr)
+        return 2
+    print("\n".join(run(Path(argv[0]))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -136,6 +136,27 @@ def test_manifest_skip_and_mark(tmp_path):
     assert stamps == {p.name: (dest / p.name).stat().st_mtime_ns for p in ins}
 
 
+def test_two_manifest_writers_keep_both_entries(tmp_path):
+    """Two processes of one batch share the manifest: each constructed it
+    before either wrote, and each marks its own file. The second write
+    merges the first's entry instead of dropping it; an entry of other
+    settings is not merged."""
+    fp = options_fingerprint(opts(), CPU)
+    a, b = BatchManifest(tmp_path, fp), BatchManifest(tmp_path, fp)
+    a.mark_done("x.wav")
+    b.mark_done("y.wav")
+    a.mark_done("z.wav")
+    data = json.loads((tmp_path / MANIFEST_NAME).read_text())
+    assert data["options"] == fp
+    assert sorted(data["done"]) == ["x.wav", "y.wav", "z.wav"]
+    rerun = BatchManifest(tmp_path, fp)
+    assert all(rerun.is_done(p) for p in ("x.wav", "y.wav", "z.wav"))
+    other = BatchManifest(tmp_path, options_fingerprint(opts(freq=90.0), CPU))
+    other.mark_done("w.wav")
+    assert json.loads((tmp_path / MANIFEST_NAME).read_text())["done"] == {
+        "w.wav": True}
+
+
 def test_shared_plan_cache_across_batch(tmp_path, monkeypatch):
     """Files at one sample rate share one designed kernel: the plan is
     made once for the batch."""

@@ -10,7 +10,8 @@ group is left alone; (c) the halo exchange of a (1, 8) time mesh over 2
 processes x 4 cells, the shard-3 | shard-4 halo crossing the process
 boundary, against the float64 oracle (``fast`` engine on normalized full
 scale: max abs error < 5e-5, peak ``rtol=1e-5``, as the JAX test); (d) each
-process of a 2-process batch filters its own files through the CLI.
+process of a 2-process batch filters its own files through the CLI, and
+with ``--resume`` both record them in the one manifest.
 """
 
 import json
@@ -184,16 +185,13 @@ def _wavs(tmp_path, count=4):
     return files
 
 
-def test_two_process_batch_through_the_cli(tmp_path):
-    """``--coordinator --num-processes --process-id``: each process joins,
-    takes its round-robin share of the batch and filters it; together they
-    write every file, each equal to the single-process output."""
-    files = _wavs(tmp_path)
-    outdir = tmp_path / "out"
+def _batch_processes(files, outdir, extra):
+    """Run a 2-process batch through the CLI; returns each process's
+    standard output."""
     port = _free_port()
     launcher = str(REPO / "bin" / "lowcut-torch")
     procs = [subprocess.Popen(
-        [sys.executable, launcher, *files, str(outdir), "-v",
+        [sys.executable, launcher, *files, str(outdir), "-v", *extra,
          "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
          "--process-id", str(r), *CPU],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -209,6 +207,16 @@ def test_two_process_batch_through_the_cli(tmp_path):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+    return outs
+
+
+def test_two_process_batch_through_the_cli(tmp_path):
+    """``--coordinator --num-processes --process-id``: each process joins,
+    takes its round-robin share of the batch and filters it; together they
+    write every file, each equal to the single-process output."""
+    files = _wavs(tmp_path)
+    outdir = tmp_path / "out"
+    outs = _batch_processes(files, outdir, [])
     for r, out in enumerate(outs):
         assert f"Joined distributed runtime: process {r}/2." in out
         done = [ln.split(": ")[1] for ln in out.splitlines()
@@ -219,6 +227,23 @@ def test_two_process_batch_through_the_cli(tmp_path):
     for f in files:
         name = Path(f).name
         assert (outdir / name).read_bytes() == (single / name).read_bytes()
+
+
+def test_two_process_resume_batch_shares_one_manifest(tmp_path):
+    """Both processes of a ``--resume`` batch record their files in the one
+    manifest (a write merges the other process's entries), so the rerun
+    filters nothing and leaves every output as it was."""
+    files = _wavs(tmp_path)
+    outdir = tmp_path / "out"
+    outs = _batch_processes(files, outdir, ["--resume"])
+    assert sum(o.count("Processing file: ") for o in outs) == 4
+    done = json.loads((outdir / ".lowcut_manifest.json").read_text())["done"]
+    assert sorted(done) == sorted(files)
+    stamps = {f: (outdir / Path(f).name).stat().st_mtime_ns for f in files}
+    outs = _batch_processes(files, outdir, ["--resume"])
+    assert not any("Processing file: " in o for o in outs), outs
+    assert stamps == {f: (outdir / Path(f).name).stat().st_mtime_ns
+                      for f in files}
 
 
 @pytest.mark.parametrize("flags,message", [

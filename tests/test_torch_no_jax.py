@@ -4,9 +4,10 @@ imports the package (and chip_smoke.py), filters a tiny WAV on the CPU
 through ``process_file``, runs ``--engine fourstep`` and ``--profile``
 through the CLI and a ``--resume`` batch, imports every module of
 ``audio_fir_filter_tpu_torch.parallel`` and runs ``--mesh 1x2``, runs the
-bench at a tiny size, and imports every probe module of ``audio_fir_filter_tpu_torch.experiments``
-and runs one plain version of each. A static check reads every file of the
-port and chip_smoke.py for an import of the JAX package."""
+bench at a tiny size, and imports every module of ``audio_fir_filter_tpu_torch.experiments``
+and runs one plain version of each probe, the segment ablations and the
+breakdown scripts (the batch script writes its inputs). A static check reads every file of the
+port, chip_smoke.py and segment_ab.py for an import of the JAX package."""
 
 import re
 import subprocess
@@ -65,7 +66,7 @@ import pkgutil
 import torch
 import audio_fir_filter_tpu_torch.experiments as ex
 names = [m.name for m in pkgutil.iter_modules(ex.__path__)]
-assert len(names) == 8, names
+assert len(names) == 12, names
 mods = {n: importlib.import_module("audio_fir_filter_tpu_torch.experiments." + n)
         for n in names}
 z = torch.zeros((1, 512, 512), dtype=torch.complex64)
@@ -77,6 +78,17 @@ mods["fused_phase_decomp"].phases(torch.zeros((2, 256)),
 mods["copy_floor_probe"].copy_floor(torch.zeros((1, 2, 512, 512)), "tr")
 mods["dma_bw_micro"].bw(torch.zeros((1, 16, 512)), "in")
 mods["dispatch_floor_probe"].passthru(torch.zeros((1, 2, 512, 512)))
+from audio_fir_filter_tpu_torch.ops import kernel_design as kd
+from audio_fir_filter_tpu_torch.ops import overlap_save as osv
+plan = osv.make_plan(kd.highpass_taps(0.05, 64), "fast", 512, "cpu")
+for v in mods["fast_decomp_r05"].VARIANTS:
+    mods["fast_decomp_r05"].segment_ablation(torch.zeros((2, 1000)), plan,
+                                             plan.mo2, 1000, v)
+small = ["--device", "cpu", "--block-size", "1024", "--freq", "100",
+         "--slope", "200", "--sample-rate", "8000", "--reps", "1", "--hops", "4"]
+assert mods["segment_decomp"].main(small) == 0
+assert mods["chunk_sweep"].main(small + ["--chunks", "2"]) == 0
+assert len(mods["batch_cfg4"].make_inputs(__import__("pathlib").Path(d), 2, 0.1)) == 2
 assert not any(k.split(".")[0] in ("jax", "audio_fir_filter_tpu")
                for k in sys.modules if sys.modules[k] is not None)
 print("NO_JAX_OK")
@@ -99,7 +111,7 @@ _JAX_PACKAGE_IMPORT = re.compile(
 
 def test_no_file_of_the_port_imports_the_jax_package():
     files = [*sorted((REPO / "audio_fir_filter_tpu_torch").rglob("*.py")),
-             REPO / "chip_smoke.py"]
+             REPO / "chip_smoke.py", REPO / "segment_ab.py"]
     assert len(files) > 30
     bad = [f"{f.relative_to(REPO)}:{m.group(0).strip()}"
            for f in files for m in _JAX_PACKAGE_IMPORT.finditer(f.read_text())]

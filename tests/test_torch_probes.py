@@ -342,7 +342,7 @@ def test_probe_families_are_built_with_their_argtypes():
 
     assert list(_build.FAMILIES) == ["segment_filter", "conv_blocks",
                                      "probe_floors", "probe_phases",
-                                     "probe_stages"]
+                                     "probe_stages", "probe_segment"]
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     entries, args = _build.FAMILIES["probe_floors"]
     assert entries == ("lowcut_probe_empty", "lowcut_probe_passthru",
