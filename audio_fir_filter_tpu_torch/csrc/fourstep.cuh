@@ -15,16 +15,18 @@
 // in that order, so nothing is ever reordered.
 //
 // What bounds the passes on this card, and the design. The radix-2 design
-// that came before ran every pass 2.8-7.0x above its device-memory floor
-// (the pass's bytes at the 2.84 TB/s staged-copy rate; PERF.md, NVIDIA
-// H100 80GB HBM3 at 700 W): nine barrier-separated sweeps over a shared
-// tile per 512-point FFT, run-time index division, 32-way bank conflicts
-// in pass 2's transposed tile, one 256-thread CTA per SM in f64. It was
+// that came before ran every pass 2.8-7.1x above its device-memory floor
+// (the pass's bytes at the 2.87 TB/s TMA staged-copy rate of probe_floors
+// bw; PERF.md, NVIDIA H100 80GB HBM3 at 700 W): nine barrier-separated
+// sweeps over a shared tile per 512-point FFT, run-time index division,
+// 32-way bank conflicts in pass 2's transposed tile, one 256-thread CTA
+// per SM in f64. It was
 // bound by that on-chip work, not by memory. The engine below cuts the
 // work, and now each pass of the block kernel runs 1.2-1.4x above its
 // floor at 128 x 2^18 (K1 / K2 / K3 0.204 / 0.275 / 0.174 ms in f64,
 // 0.122 / 0.134 / 0.113 in f32), and the passes' data movement alone
-// (no arithmetic) reaches 2.7-2.85 TB/s. So the passes are bound by device
+// (no arithmetic) reaches 2.7-2.85 TB/s, 94-99 % of that rate (x.clone()
+// 2.96 TB/s). So the passes are bound by device
 // memory, or by L2 where the scratch fits it (8 pairs on the block path:
 // 16 MB f32, 32 MB f64, against 50 MB of L2):
 //
@@ -61,9 +63,10 @@
 //     a thread's 8 elements otherwise go to local memory.
 //   - Global accesses stay 8 or 16 bytes (one element) a thread: the
 //     gathers read 8 columns (32 bytes of a row) per 8 lanes, and the
-//     passes with no arithmetic already move their bytes at 94-100 % of
-//     the staged-copy rate, so neither 16-byte vectors of real samples nor
-//     cp.async / TMA staging has anything left to gain.
+//     passes with no arithmetic already move their bytes at 94-99 % of
+//     the TMA staged-copy rate (2.87 TB/s), so neither 16-byte vectors of
+//     real samples nor TMA staging (its own copy is at most 6 % faster
+//     than these passes) has more than a few percent left to gain.
 //   - Tensor cores are not used: even the old passes did only about 1.3
 //     TFLOP/s in f64, a few percent of the card, and the new ones are bound
 //     by memory; TF32 would break the f32 gate (1 LSB @ 16 bits) without

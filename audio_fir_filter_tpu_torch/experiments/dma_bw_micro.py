@@ -4,20 +4,26 @@ Counterpart of ``experiments/dma_bw_micro.py`` (``bw_kernel``, the
 ``pallas_call`` at :123, and at :105 for mode ``none``): on the TPU, a grid
 of steps each DMAing a [rows, 512] f32 chunk HBM -> VMEM and back,
 double-buffered, with the chunk split into ``split`` DMAs. On the card,
-``csrc/probe_floors.cu`` ``bw`` runs one CTA per step of x [steps, rows,
-512] (128 steps, rows 512, 1024 or 2048); each step streams its rows
-through two 32 KB shared-memory stages with ``cp.async``, ``split`` (1 or
-4) commit groups per stage (the counterpart of the DMA chunking). Modes and
-their defined outputs (so no traffic can be dropped):
+``csrc/probe_floors.cu`` ``bw`` uses the card's copy engine: TMA bulk
+copies (``cp.async.bulk``) through a ring of ``STAGES`` 32 KB stages of
+shared memory, each completing on its own ``mbarrier``, issued by one
+thread per CTA; a persistent grid of as many CTAs as are resident (one per
+SM) walks the 32 KB tiles (16 rows) of x [steps, rows, 512] (128 steps,
+rows 512, 1024 or 2048). ``split`` (1 or 4) is the number of bulk copies a
+stage is issued as (the counterpart of the DMA chunking). Modes and their
+defined outputs (so no traffic can be dropped):
 
 - ``both``: global -> shared -> global, y = x (plain: ``x.clone()``);
 - ``in``: global -> shared only, the per-step sum in float64 (plain:
   ``x.sum(dim=(1, 2))`` in float64, compared at float32 tolerance);
-- ``out``: shared -> global only, y[s, r, c] = s * 8192 + (r % 16) * 512 + c
-  from a pattern written once to shared memory;
+- ``out``: shared -> global only, y[s, r, c] = s * 8192 + (r % 16) * 512 + c,
+  written by the threads into each stage;
 - ``none``: no traffic, y = ones [steps, 8, 512] (the grid floor).
 
-GB/s counts the bytes each mode moves through device memory.
+:func:`bw_ring` runs ``both`` at other ring depths and CTA counts: the
+sweep behind the ring's design. GB/s counts the bytes each mode moves
+through device memory; every one of these shapes is larger than the L2,
+so a reading above 3.35 TB/s fails the run (the compiler dropped work).
 """
 
 from __future__ import annotations
@@ -34,6 +40,11 @@ SPLITS = (1, 4)
 MODES = ("none", "in", "out", "both")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 TILE_ROWS = 16
+STAGES = 4                   # the ring's depth (csrc kBwStages)
+STRIDED = True               # its walk over the tiles (csrc kBwStrided)
+# lowcut_probe_bw_ring's variants, by id: (stages, strided walk).
+RINGS = ((2, True), (4, True), (6, True), (4, False))
+RING_CTAS = (64, 128, 0)     # the sweep's grids; 0: as many as are resident
 
 launches = {"probe_bw": 0}
 
@@ -57,16 +68,41 @@ def bw(x: torch.Tensor, mode: str, split: int = 1) -> torch.Tensor:
     if not _probe.on_card(x):
         return reference(x, mode)
     steps, rows, _ = x.shape
-    sums = None
+    aux = None
     if mode == "in":
-        y = sums = torch.empty(steps, dtype=torch.float64, device=x.device)
+        # The sums, then one float64 partial a tile (summed in tile order).
+        aux = torch.empty(steps * (1 + rows // TILE_ROWS), dtype=torch.float64,
+                          device=x.device)
+        y = aux[:steps]
     elif mode == "none":
         y = torch.empty((steps, 8, COLS), dtype=torch.float32, device=x.device)
     else:
         y = torch.empty_like(x)
     _probe.launch("probe_floors", "lowcut_probe_bw", x.device,
                   x.data_ptr(), None if mode == "in" else y.data_ptr(),
-                  _probe.ptr(sums), steps, rows, split, _MODE_ID[mode])
+                  _probe.ptr(aux), steps, rows, split, _MODE_ID[mode])
+    launches["probe_bw"] += 1
+    return y
+
+
+def bw_ring(x: torch.Tensor, stages: int, strided: bool,
+            ctas: int = 0) -> torch.Tensor:
+    """``both`` at split 1 through a ring of ``stages`` stages, walking the
+    tiles strided (CTA c: tiles c, c + G, ...) or in one contiguous run a
+    CTA, on ``ctas`` CTAs (0: as many as are resident). CPU tensors:
+    ``x.clone()``."""
+    _check(x, "both", 1)
+    if (stages, strided) not in RINGS:
+        raise ValueError(f"(stages, strided) must be one of {RINGS}, got "
+                         f"{(stages, strided)}")
+    if ctas < 0:
+        raise ValueError(f"ctas must be >= 0 (0: resident), got {ctas}")
+    if not _probe.on_card(x):
+        return reference(x, "both")
+    y = torch.empty_like(x)
+    _probe.launch("probe_floors", "lowcut_probe_bw_ring", x.device,
+                  x.data_ptr(), y.data_ptr(), None, x.shape[0], x.shape[1],
+                  ctas, RINGS.index((stages, strided)))
     launches["probe_bw"] += 1
     return y
 
@@ -101,11 +137,12 @@ def _input(rows: int, dev) -> torch.Tensor:
 
 
 def verify(device="cuda") -> dict:
-    """Every mode and split at rows 512 and 2048 against the plain
-    version: bitwise for both/out/none, the float32 tolerance for in."""
+    """Every mode and split at every row count against the plain version:
+    bitwise for both/out/none, the float32 tolerance for in; the ring
+    sweep's configurations bitwise at rows 512."""
     dev = _probe.card(device)
     err = 0.0
-    for rows in (512, 2048):
+    for rows in ROWS:
         x = _input(rows, dev)
         for mode in MODES:
             for split in SPLITS:
@@ -122,32 +159,65 @@ def verify(device="cuda") -> dict:
                     e = _probe.expect(f"bw {mode} rows={rows} split={split}",
                                       got, want, None)
                 err = max(err, e)
+        if rows == ROWS[0]:
+            for ring in RINGS:
+                for ctas in RING_CTAS:
+                    _probe.expect(f"bw ring {ring} ctas={ctas}",
+                                  bw_ring(x, *ring, ctas), x, None)
     torch.cuda.synchronize(dev)
     return {"probe_bw": err}
 
 
+def _rate(what: str, nbytes: int, ms: float) -> list:
+    """[GB/s, share of 3.35 TB/s] of ``nbytes`` in ``ms``; raises above
+    3.35 TB/s (no shape here fits the L2, so a faster reading means work
+    was dropped)."""
+    share = nbytes / roofline.HBM_BYTES_PER_S / (ms * 1e-3)
+    if share > 1:
+        raise RuntimeError(f"{what}: {nbytes} B in {ms:.4f} ms, above 3.35 TB/s")
+    return [_probe.gbps(nbytes, ms), f"{share:.1%}"]
+
+
 def run(device="cuda", reps: int = 5) -> dict:
     dev = _probe.card(device)
-    rows_out = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     xs = {rows: _input(rows, dev) for rows in ROWS}
+    clone = {rows: _probe.event_ms(lambda: reference(xs[rows], "both"), reps)
+             for rows in ROWS}
+    rows_out = []
     for mode in MODES:
         for rows in ((512,) if mode == "none" else ROWS):
             for split in ((1,) if mode == "none" else SPLITS):
                 ms = _probe.event_ms(lambda: bw(xs[rows], mode, split), reps)
                 nb = moved_bytes(mode, STEPS, rows)
                 rows_out.append([mode, rows, split, ms,
-                                 _probe.gbps(nb, ms) if nb else "-"])
-    x = xs[2048]
-    ms = _probe.event_ms(lambda: bw(x, "both", 4), reps)
-    plain_ms = _probe.event_ms(lambda: reference(x, "both"), reps)
+                                 *(_rate(f"bw {mode} rows={rows}", nb, ms)
+                                   if nb else ["-", "-"]),
+                                 clone[rows] if mode == "both" else "-"])
     lines = _probe.table(
-        f"staged copies, {STEPS} steps x rows x {COLS} f32 (CUDA events, "
-        f"median of {reps}); plain x.clone() at rows 2048: {plain_ms:.4f} ms",
-        ["mode", "rows", "split", "ms", "GB/s"], rows_out)
+        f"staged copies (TMA ring of {STAGES} x 32 KB, one CTA on each of "
+        f"{sms} SMs), {STEPS} steps x rows x {COLS} f32 (CUDA events, median "
+        f"of {reps}); share: of the mode's bytes at 3.35 TB/s",
+        ["mode", "rows", "split", "ms", "GB/s", "share", "x.clone() ms"],
+        rows_out)
+    x = xs[2048]
+    nb = moved_bytes("both", STEPS, 2048)
+    sweep = []
+    for stages, strided in RINGS:
+        for ctas in RING_CTAS:
+            ms = _probe.event_ms(lambda: bw_ring(x, stages, strided, ctas), reps)
+            sweep.append([stages, "strided" if strided else "contiguous",
+                          ctas or f"{sms} (resident)", ms,
+                          *_rate(f"bw ring {stages}/{ctas}", nb, ms)])
+    lines += _probe.table(
+        f"ring sweep, `both` at rows 2048, split 1 (x.clone(): "
+        f"{clone[2048]:.4f} ms)", ["stages", "walk", "CTAs", "ms", "GB/s", "share"],
+        sweep)
+    ms = _probe.event_ms(lambda: bw(x, "both", 4), reps)
     # The plain version is one library call, x.clone().
     return {"lines": lines,
             "kernels": {"probe_bw": {
-                "ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms,
+                "ms": ms, "plain_ms": clone[2048], "library_ms": clone[2048],
                 **roofline.bound(moved_bytes("both", STEPS, 2048), 0, "f32")}}}
 
 

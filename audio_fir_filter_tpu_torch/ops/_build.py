@@ -46,7 +46,8 @@ FAMILIES = {
     # path calls them).
     "probe_floors": (
         ("lowcut_probe_empty", "lowcut_probe_passthru", "lowcut_probe_bw",
-         "lowcut_probe_copy_floor"),
+         "lowcut_probe_bw_ring", "lowcut_probe_copy_floor",
+         "lowcut_probe_cluster_occupancy"),
         # x, y, aux, a, b, c, mode, stream
         [_p, _p, _p, _ll, _ll, _ll, _i, _p],
     ),

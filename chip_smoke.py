@@ -58,7 +58,12 @@ result line):
    beats its own traffic at 3.35 TB/s where the scratch streams through
    device memory), holds ``full`` bitwise against the shipped kernel at
    the headline, and times the shipped passes there under
-   ``torch.profiler``;
+   ``torch.profiler``. The two floor kernels redesigned for Hopper are
+   checked bitwise everywhere they run: ``bw`` (TMA bulk copies through an
+   ``mbarrier`` ring) in every mode and split at rows 512, 1024 and 2048,
+   and the copy floor's ``cluster`` variant (one plane per thread-block
+   cluster, both transposes through distributed shared memory) at 8 and
+   1008 pairs; the cluster occupancy is printed and must be > 0;
 10. the bench contract as a user runs it, ``python3 -m
    audio_fir_filter_tpu_torch.bench`` in subprocesses: ``--fidelity
    --roofline --all --reps 3``, then ``--engine fourstep --reps 3 --e2e
@@ -933,6 +938,13 @@ def phase_probes(card: str) -> dict:
         errs.update(mod.verify("cuda"))
     print("probes vs plain versions: "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    from audio_fir_filter_tpu_torch.experiments.copy_floor_probe import (
+        cluster_occupancy, occupancy_line)
+
+    occ = cluster_occupancy("cuda")
+    print(occupancy_line(occ))
+    check(occ["cluster"] > 0 and occ["cluster16"] > 0,
+          "a copy-floor cluster cannot be resident")
     _zero_counts()
     timed = {}
     for mod in mods:

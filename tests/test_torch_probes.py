@@ -17,7 +17,12 @@ against the JAX package's own functions and NumPy float64:
   convolution, ``no_tr`` a permutation that is the identity with a flat
   spectrum, the copy variants equal x;
 - the device rule: no probe runs on ``cuda`` without a card or on the CPU,
-  and the CPU wrappers build nothing.
+  and the CPU wrappers build nothing;
+- NumPy mirrors of the two redesigned floor kernels of
+  ``csrc/probe_floors.cu``: the cluster variant's two all-to-alls through
+  distributed shared memory, and ``bw``'s ring of TMA bulk copies (which
+  tile each CTA walks, when a stage is refilled, what each bulk copy and
+  ``mbarrier`` phase covers).
 """
 
 import numpy as np
@@ -303,6 +308,298 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ms2.chain(torch.zeros((1, 512, 512), dtype=torch.complex64), "cmul")
 
 
+def test_cluster_and_ring_plain_versions_count_no_launch_on_the_cpu(monkeypatch):
+    from audio_fir_filter_tpu_torch.ops import _build
+
+    def no_build(*a, **k):
+        raise AssertionError("a CPU tensor must not build a kernel")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    before = dict(cfp.launches), dict(bwm.launches)
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (2, 2, 512, 512)).astype(np.float32))
+    assert torch.equal(cfp.copy_floor(x, "cluster"), x)
+    xb = torch.rand((3, 48, 512)) - 0.5
+    for ring in bwm.RINGS:
+        assert torch.equal(bwm.bw_ring(xb, *ring), xb)
+    assert torch.equal(cfp.copy_floor(x, "cluster16"), x)
+    assert (dict(cfp.launches), dict(bwm.launches)) == before
+    assert cfp.moved_bytes("cluster", x) == 2 * x.numel() * 4
+    assert cfp.moved_bytes("cluster16", x) == 2 * x.numel() * 4
+    assert cfp.moved_bytes("tr", x) == 6 * x.numel() * 4
+
+
+def test_ring_and_cluster_wrappers_reject_what_the_kernels_do_not_take(
+        monkeypatch):
+    x = torch.zeros((2, 16, 512))
+    with pytest.raises(ValueError, match="stages"):
+        bwm.bw_ring(x, 3, False)
+    with pytest.raises(ValueError, match="stages"):
+        bwm.bw_ring(x, 6, False)
+    with pytest.raises(ValueError, match="ctas"):
+        bwm.bw_ring(x, 4, True, -1)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        bwm.bw_ring(torch.zeros((2, 24, 512)), 4, True)
+    with pytest.raises(ValueError, match="split"):
+        bwm.bw(x, "both", 2)
+    with pytest.raises(ValueError, match="variant"):
+        cfp.copy_floor(torch.zeros((1, 2, 512, 512)), "clusters")
+    with pytest.raises(ValueError, match=r"\[pairs, 2, 512, 512\]"):
+        cfp.copy_floor(torch.zeros((1, 2, 256, 512)), "cluster")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cfp.cluster_occupancy("cuda")
+    with pytest.raises(ValueError, match="time a CUDA card"):
+        cfp.cluster_occupancy("cpu")
+
+
+# ------------------------------- mirror: the cluster-resident copy floor
+# csrc/probe_floors.cu cf_cluster<C>: CTA r of a plane's cluster of C
+# holds its slab ([R][128] float4, rows R r .., R = 512 / C), then its band
+# ([512][R / 4] float4, columns R r ..), then its slab again; thread
+# t = g * B + e (B = R * R / 4, the float4 of a block) moves, in round
+# K = G k + g (G = threads / B), the float4 (lr, q) = (e // (R / 4),
+# e % (R / 4)) of the R x R block it shares with peer p = (r + K) % C.
+
+SMEM_PER_CTA = 232448          # 227 KB: what a CTA of the card may use
+
+
+def _cluster_maps(c):
+    """Per (CTA r, thread t, k): the round, the peer read and the float4
+    index read there and written locally, for the first and the second
+    all-to-all."""
+    threads = cfp.CLUSTER_THREADS[c]
+    rows = 512 // c
+    row4, block4 = rows // 4, rows * rows // 4
+    groups = threads // block4
+    r, t, k = np.meshgrid(np.arange(c), np.arange(threads),
+                          np.arange(c // groups), indexing="ij")
+    g, e = t // block4, t % block4
+    lr, q = e // row4, e % row4
+    rnd = groups * k + g
+    p = (r + rnd) % c
+    first = dict(round=rnd, peer=p, src=lr * 128 + r * row4 + q,
+                 dst=p * block4 + e)
+    second = dict(round=rnd, peer=p, src=r * block4 + e,
+                  dst=lr * 128 + p * row4 + q)
+    return first, second
+
+
+def _exchange(own, m):
+    """One all-to-all: every read (into registers) before any write, as the
+    kernel's cluster.sync between them orders it."""
+    v = own[m["peer"], m["src"]]
+    out = np.empty_like(own)
+    out[np.arange(own.shape[0])[:, None, None], m["dst"]] = v
+    return out
+
+
+@pytest.mark.parametrize("variant", sorted(cfp.CLUSTERS))
+def test_cluster_exchange_maps_are_permutations_that_compose_to_identity(
+        variant):
+    c = cfp.CLUSTERS[variant]
+    first, second = _cluster_maps(c)
+    n4 = 512 * 512 // 4                        # float4 of a plane
+    for m in (first, second):
+        # Each CTA's shared-memory float4 is read once and written once.
+        read = m["peer"] * (n4 // c) + m["src"]
+        assert np.array_equal(np.sort(read.ravel()), np.arange(n4))
+        wrote = np.arange(c)[:, None, None] * (n4 // c) + m["dst"]
+        assert np.array_equal(np.sort(wrote.ravel()), np.arange(n4))
+    plane = np.random.default_rng(16).standard_normal((512, 512)).astype(np.float32)
+    slabs = plane.reshape(c, n4 // c, 4)       # CTA r: rows [R r, R r + R)
+    bands = _exchange(slabs, first)
+    w = 512 // c
+    for r in range(c):                         # band r: columns R r .., row-major
+        assert np.array_equal(bands[r].reshape(512, w),
+                              plane[:, w * r: w * (r + 1)])
+    assert np.array_equal(_exchange(bands, second), slabs)
+
+
+@pytest.mark.parametrize("variant", sorted(cfp.CLUSTERS))
+def test_cluster_rounds_read_distinct_peers_and_fit_shared_memory(variant):
+    c = cfp.CLUSTERS[variant]
+    for m in _cluster_maps(c):
+        for rnd in range(c):
+            at = m["round"] == rnd
+            peers = [set(m["peer"][r][at[r]].tolist()) for r in range(c)]
+            assert all(len(ps) == 1 for ps in peers)
+            assert len({ps.pop() for ps in peers}) == c  # no two CTAs on one peer
+        # 16 bytes a thread on consecutive addresses: each 8-lane phase of a
+        # 16-byte access covers 128 contiguous bytes, every bank once.
+        for key in ("src", "dst"):
+            lanes = m[key][0, :, 0].reshape(-1, 8)
+            assert (np.diff(lanes, axis=1) == 1).all()
+    # The slab, then the band in its place, and an mbarrier; the block in
+    # flight sits in registers (32 floats a thread): a second buffer of the
+    # 128 KB slab would not fit beside it.
+    smem = cfp.cluster_smem(c)
+    assert smem == 512 * 512 * 4 // c + 16 <= SMEM_PER_CTA
+    assert cfp.CLUSTER_THREADS[c] * 32 * 4 == smem - 16
+    assert 2 * cfp.cluster_smem(8) > SMEM_PER_CTA
+    # cluster16: two CTAs (of two planes) fit one SM; cluster: one.
+    assert (SMEM_PER_CTA // smem, 2048 // cfp.CLUSTER_THREADS[c]) >= (
+        (1, 2) if c == 8 else (2, 2))
+
+
+# --------------------------------------------- mirror: bw's TMA ring
+# csrc/probe_floors.cu bw_ring: CTA c of G walks the 32 KB tiles c, c + G,
+# c + 2 G, ... (strided) or [c T // G, (c + 1) T // G) (contiguous); its
+# j-th tile uses stage j % S; thread 0 issues the bulk copies. Each
+# function below is the issuing thread's program as the kernel runs it,
+# replayed against a model of the bulk groups (a store group has read its
+# stage once a later wait_group.read N leaves at most N groups after it).
+
+_TILE = bwm.TILE_ROWS * bwm.COLS * 4           # bytes a stage
+
+
+class _Ring:
+    def __init__(self, c, ctas, tiles, stages, split, strided):
+        if strided:                             # tiles c, c + G, ...
+            self.tile = lambda j: c + j * ctas
+            self.n = (tiles - c + ctas - 1) // ctas
+        else:                                   # [c T // G, (c + 1) T // G)
+            t0 = tiles * c // ctas
+            self.tile = lambda j: t0 + j
+            self.n = tiles * (c + 1) // ctas - t0
+        self.S, self.split = stages, split
+        self.slot = [None] * stages             # (tile, state) per stage
+        self.groups = 0                         # store groups committed
+        self.read_done = 0                      # groups that have read
+        self.loaded, self.stored = [], []       # tiles
+        self.copies = {"load": [], "store": []}  # (byte offset, bytes)
+
+    def _copies(self, kind, j):
+        piece = _TILE // self.split
+        base = self.tile(j) * _TILE
+        for g in range(self.split):
+            self.copies[kind].append((base + g * piece, piece))
+        assert _TILE < 1 << 20                  # one mbarrier phase's expect_tx
+
+    def load(self, j):
+        s = j % self.S
+        prev = self.slot[s]
+        if prev is not None:                    # refill: that tile is done with
+            assert prev[1] in ("stored", "consumed")
+            if prev[1] == "stored":
+                assert prev[2] < self.read_done, "refilled before its store read it"
+        self._copies("load", j)
+        self.slot[s] = (j, "loaded")
+        self.loaded.append(self.tile(j))
+
+    def write(self, j):                          # `out`: the threads' pattern
+        s = j % self.S
+        prev = self.slot[s]
+        if prev is not None:
+            assert prev[1] == "stored" and prev[2] < self.read_done
+        self.slot[s] = (j, "loaded")
+
+    def store(self, j):
+        s = j % self.S
+        assert self.slot[s] == (j, "loaded")
+        self._copies("store", j)
+        self.slot[s] = (j, "stored", self.groups)
+        self.groups += 1
+        self.stored.append(self.tile(j))
+
+    def consume(self, j):
+        s = j % self.S
+        assert self.slot[s] == (j, "loaded")
+        self.slot[s] = (j, "consumed")
+
+    def wait_read(self, n_pending):
+        self.read_done = max(self.read_done, self.groups - n_pending)
+
+
+def _both(ring):
+    S, n = ring.S, ring.n
+    for j in range(min(S, n)):
+        ring.load(j)
+    for j in range(n):
+        ring.store(j)
+        if j >= 1 and j - 1 + S < n:
+            ring.wait_read(1)
+            ring.load(j - 1 + S)
+    ring.wait_read(0)
+
+
+def _in(ring):
+    S, n = ring.S, ring.n
+    for j in range(n):
+        if j >= S:
+            ring.consume(j - S)                 # the consumers' empty arrival
+        ring.load(j)
+    for j in range(max(n - S, 0), n):
+        ring.consume(j)
+
+
+def _out(ring):
+    S, n = ring.S, ring.n
+    released = set(range(min(S, n)))           # first use: no wait
+    for j in range(n):
+        assert j in released                    # the writers' empty wait
+        ring.write(j)
+        ring.store(j)
+        if j + 1 >= S and j + 1 < n:
+            ring.wait_read(S - 1)
+            released.add(j + 1)
+    ring.wait_read(0)
+
+
+def _cover(copies, total):
+    """The bulk copies: 16-byte aligned multiples of 16 bytes that cover
+    [0, total) once."""
+    copies = sorted(copies)
+    assert all(a % 16 == 0 and ln % 16 == 0 for a, ln in copies)
+    ends = [a + ln for a, ln in copies]
+    assert copies[0][0] == 0 and ends[-1] == total
+    assert all(e == a for e, (a, _) in zip(ends, copies[1:]))
+
+
+@pytest.mark.parametrize("split", bwm.SPLITS)
+@pytest.mark.parametrize("rows", bwm.ROWS)
+def test_bw_ring_schedule_moves_each_byte_once_and_waits_for_reads(rows, split):
+    tiles = bwm.STEPS * rows // bwm.TILE_ROWS
+    total = tiles * _TILE
+    assert total == bwm.moved_bytes("in", bwm.STEPS, rows)
+    # 132 resident CTAs (one a SM) and the sweep's grids, every ring the
+    # kernel is built for (the shipped one for `in` and `out`, and for
+    # `both` at split 4).
+    shipped = ((bwm.STAGES, bwm.STRIDED),)
+    for ctas in (132, *[c for c in bwm.RING_CTAS if c]):
+        for mode, program, rings in (
+                ("both", _both, bwm.RINGS if split == 1 else shipped),
+                ("in", _in, shipped), ("out", _out, shipped)):
+            for stages, strided in rings:
+                loads, stores = [], []
+                copies = {"load": [], "store": []}
+                for c in range(ctas):
+                    ring = _Ring(c, ctas, tiles, stages, split, strided)
+                    program(ring)
+                    assert ring.read_done == ring.groups  # all read at exit
+                    loads += ring.loaded
+                    stores += ring.stored
+                    for kind in copies:
+                        copies[kind] += ring.copies[kind]
+                want = list(range(tiles))
+                # Each byte loaded once (both, in) and stored once (both, out).
+                assert sorted(loads) == (want if mode != "out" else [])
+                assert sorted(stores) == (want if mode != "in" else [])
+                for kind in copies:
+                    if copies[kind]:
+                        _cover(copies[kind], total)
+
+
+def test_bw_ring_fits_shared_memory_and_mbarrier_counts():
+    for stages in {s for s, _ in bwm.RINGS}:
+        smem = stages * _TILE + 2 * stages * 8 + stages * 8 * 8
+        assert smem <= SMEM_PER_CTA
+    # Two rings of the shipped depth do not fit one SM: one CTA a SM.
+    assert 2 * (bwm.STAGES * _TILE) > SMEM_PER_CTA
+    for split in bwm.SPLITS:
+        assert _TILE % split == 0 and (_TILE // split) % 16 == 0
+
+
 # --------------------------------------------------- device rule, build
 
 @pytest.mark.parametrize("mod", MODULES, ids=lambda m: m.__name__.split(".")[-1])
@@ -346,7 +643,9 @@ def test_probe_families_are_built_with_their_argtypes():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     entries, args = _build.FAMILIES["probe_floors"]
     assert entries == ("lowcut_probe_empty", "lowcut_probe_passthru",
-                       "lowcut_probe_bw", "lowcut_probe_copy_floor")
+                       "lowcut_probe_bw", "lowcut_probe_bw_ring",
+                       "lowcut_probe_copy_floor",
+                       "lowcut_probe_cluster_occupancy")
     assert args == [p, p, p, ll, ll, ll, i, p]
     entries, args = _build.FAMILIES["probe_phases"]
     assert entries == ("lowcut_probe_phases_f32", "lowcut_probe_phases_f64")
