@@ -109,6 +109,7 @@
 #include <cuda_runtime.h>
 
 #include "fourstep.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -125,93 +126,6 @@ passthru(const float4* __restrict__ x, float4* __restrict__ y, long long per) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < per;
        i += (long long)gridDim.x * blockDim.x)
     y[base + i] = x[base + i];
-}
-
-// ------------------------------------ TMA bulk copies and mbarriers (probes)
-
-using Bar = unsigned long long;  // an mbarrier: 8 bytes of shared memory
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(Bar* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-// Makes the initialised barriers visible to the async proxy and the cluster.
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// One arrival that also expects `bytes` of bulk-copy completions.
-__device__ __forceinline__ void mbar_expect_tx(Bar* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(Bar* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-// Waits until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(Bar* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-}
-// global -> shared, completing `bytes` on `bar` (the CTA's own shared
-// memory is its window of the cluster's).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes, Bar* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-// shared -> global, in the issuing thread's current bulk group.
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           unsigned bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-                   dst),
-               "r"(smem_addr(src)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// At most N of the issuing thread's bulk groups still read shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-// Orders the threads' shared-memory writes before a later bulk store.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Persistent grid: as many CTAs of `kernel` as occupancy allows on every SM.
-template <typename K>
-cudaError_t resident_ctas(K kernel, int threads, size_t smem, int* ctas) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
-  if (err == cudaSuccess && per_sm == 0) err = cudaErrorInvalidConfiguration;
-  *ctas = per_sm * sms;
-  return err;
 }
 
 // ---------------------------------------------------------- staged copies

@@ -30,14 +30,67 @@
 //              positions, y = x + x[i ^ e] on (i & e) == 0, else
 //              (x[i ^ e] - x) * exp(-2 pi i v / 64) for column v;
 //   transpose  out[b] = z[b]^T through param x param shared tiles (32, 64);
-//   cmul       out = z * table, table [512, 512] resident in device memory.
+//   cmul       out = z * table, table [512, 512] resident in device memory;
+//   fwd_ring   the row's function done the Hopper way (ring_chain below):
+//              the 512-point forward DFT along axis 1 in fwd_r2's order
+//              (bit-reversed);
+//   fwd_ring_r8  the same in fwd_r8's order (base-8 digit-reversed).
 // Stage twiddles come from `table` = exp(-2 pi i k / 512), k < 512,
 // computed in float64 on the host. What bounds each case is what the
 // probe measures; nothing here is on the program's path.
+//
+// The chain for Hopper (ring_chain; the kernels line's probe_stages and
+// probe_stages2 rows, which replace the TPU probes' chains,
+// experiments/mosaic_stages.py:65 `fwd r2` and mosaic_stages2.py:50
+// `fwd r8`). What bounds it: bytes. One read and one write of the
+// blocks, 2 x 8 MB (f32) / 16 MB (f64) at [8, 512, 512], is 0.0100 /
+// 0.0200 ms at 3.35 TB/s; the arithmetic, 5 N log2 N flops a transform,
+// 94 Mflop at batch 8, is 1.4 us at 67 TFLOP/s. The sweeps above
+// (stage_tile) run each stage as a barrier-separated pass over a shared
+// tile and load and store it with the threads, one tile a CTA, so inside
+// a CTA copies and arithmetic never overlap. The design:
+//   - A persistent grid: one CTA a SM (its 200 KB ring leaves room for no
+//     second) walks the work items, (block b, columns [v0, v0 + kW)), in
+//     the strided order c, c + G, c + 2 G, ..., so a CTA has several slabs
+//     to overlap and neighbouring CTAs read neighbouring columns.
+//   - A slab is [512, kW], kW = 16 (f32) or 8 (f64): 128 B a row, 64 KB.
+//     A ring of 3 slabs in shared memory, one mbarrier each, is fed by
+//     bulk copies: while the CTA transforms slab j, slab j + 1 loads and
+//     slab j - 1 stores; slab j + 2 then loads into j - 1's stage.
+//   - The copies go through 2-D tensor maps: a slab's 512 rows lie 4 / 8
+//     KB apart, which the TMA unit walks itself, so a slab is two 256-row
+//     boxes (the box limit) each way, two instructions of one thread
+//     against one expect_tx of 64 KB. The maps are built by
+//     cuTensorMapEncodeTiled through the runtime's entry-point query
+//     (tma.cuh) and passed as __grid_constant__. The alternative, 512 1-D
+//     copies of 128 B a slab spread over warp 0's lanes, issues 256 times
+//     the copy instructions; measured, it ran 4-5x slower (about 31 ns a
+//     copy; NVIDIA H100 80GB HBM3 at 700 W, PERF.md) and was dropped.
+//   - The stage is the exchange tile: the slab goes from its stage into
+//     registers (pos<0>), Fft<T, 9>::forward runs with its two swizzled
+//     exchanges through that same stage (fourstep.cuh, unchanged), and the
+//     registers go back into the stage in the output order, row-major as
+//     the store reads it. Every one of those shared accesses puts a warp's
+//     lanes on consecutive 8- or 16-byte elements or on the swizzle the
+//     shipped passes use: no bank conflicts. Then every thread fences for
+//     the async proxy (fence.proxy.async.shared::cta), a barrier, and
+//     thread 0 bulk-stores the slab. A stage is refilled only after
+//     cp.async.bulk.wait_group.read says its store has read it. Shared
+//     memory holds the ring, the twiddle tables and the barriers.
+//   - Measured (same card): at [256, 512, 512], 2.15 GB in f64, the ring
+//     moves its bytes at 2.7-2.8 TB/s, 7-11 % behind z.clone() and 2-7 %
+//     behind fwd_reg; at [8, 512, 512] it is within a few percent of
+//     fwd_reg, at ~60 % of the bound (PERF.md).
+//   - The same function, not the same sweeps: both orders run Fft<T, 9>
+//     (radix 8 in registers, whose output is bit-reversed) and store DFT
+//     bin k at its order's row: the bit-reversed row itself, or for
+//     fwd_r8's base-8 digit reversal the row with each octal digit's three
+//     bits reversed in place (digitrev8(bitrev9(p))).
 
 #include <cuda_runtime.h>
 
 #include "fourstep.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -48,7 +101,7 @@ constexpr int kW = 16;
 enum Case {
   kNoop = 0, kR2 = 1, kR4 = 2, kFwdR2 = 3, kFwdR4 = 4, kFwdR8 = 5,
   kInvR2 = 6, kInvR4 = 7, kInvR8 = 8, kFwdInv = 9, kShuffle = 10,
-  kTranspose = 11, kCmul = 12, kFwdReg = 13,
+  kTranspose = 11, kCmul = 12, kFwdReg = 13, kFwdRing = 14, kFwdRingR8 = 15,
 };
 
 template <typename T>
@@ -340,6 +393,151 @@ reg_chain(const Cx<T>* __restrict__ z, Cx<T>* __restrict__ out,
     out[base + (size_t)F::template pos<F::kStages - 1>(t, m) * kN] = v[m];
 }
 
+// ------------------------------------------------- the chain for Hopper
+
+constexpr int kRingStages = 3;  // slabs a CTA holds: one in work, two loading
+constexpr int kBoxRows = 256;   // a tensor-map box's rows (TMA's limit)
+constexpr int kOrderR2 = 0, kOrderR8 = 1;  // fwd_r2's or fwd_r8's output order
+
+template <typename T>
+struct Ring {
+  using F = Fft<T, kLogN>;
+  static constexpr int kW = 128 / (int)sizeof(Cx<T>);  // transforms a slab
+  static constexpr int kLogW = ilog2(kW);
+  static constexpr int kThreads = kW * F::kNT;  // 1024 (f32), 512 (f64)
+  static constexpr int kSlabElems = kN * kW;
+  static constexpr unsigned kRowBytes = kW * sizeof(Cx<T>);
+  static constexpr unsigned kSlabBytes = kN * kRowBytes;  // 64 KB
+  static constexpr int kSlabs = kN / kW;  // slabs a block
+  static constexpr size_t kSmem = kRingStages * (size_t)kSlabBytes +
+                                  F::kTableElems * sizeof(Cx<T>) +
+                                  kRingStages * sizeof(Bar);
+  static_assert(kRowBytes == 128 && kSlabBytes < (1u << 20), "expect_tx");
+  static_assert(F::kTableElems * sizeof(Cx<T>) % sizeof(Bar) == 0, "alignment");
+  static_assert(kSmem <= 232448, "a CTA's shared memory");
+};
+
+// The output row of the register that holds row p after Fft<T, 9>::forward
+// (DFT bin bitrev9(p)).
+template <int kOrder>
+__device__ __forceinline__ int out_row(int p) {
+  if constexpr (kOrder == kOrderR2) {
+    return p;
+  } else {
+    return (brev(p >> 6, 3) << 6) | (brev((p >> 3) & 7, 3) << 3) |
+           brev(p & 7, 3);
+  }
+}
+
+// CTA c of G transforms items c, c + G, c + 2 G, ... of the batch x
+// kSlabs items, item i being columns [(i % kSlabs) kW, + kW) of block
+// i / kSlabs. Thread (t, w) = threadIdx.x >> kLogW, & (kW - 1) holds
+// transform w's registers; thread 0 issues the copies.
+template <typename T, int kOrder>
+__global__ void __launch_bounds__(Ring<T>::kThreads, 1)
+ring_chain(const __grid_constant__ CUtensorMap zmap,
+           const __grid_constant__ CUtensorMap omap,
+           const Cx<T>* __restrict__ roots, int items) {
+  using R = Ring<T>;
+  using F = typename R::F;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // The ring, the twiddle tables, the barriers (each aligned for its type).
+  Cx<T>* ring = reinterpret_cast<Cx<T>*>(smem_raw);
+  Cx<T>* tab = ring + kRingStages * R::kSlabElems;
+  Bar* full = reinterpret_cast<Bar*>(tab + F::kTableElems);
+  const int tid = threadIdx.x;
+  const int w = tid & (R::kW - 1), t = tid >> R::kLogW;
+  const bool issuer = tid == 0;
+  const CUtensorMap* zm = &zmap;
+  const CUtensorMap* om = &omap;
+  const int n = (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  auto slot = [&](int j) { return ring + (j % kRingStages) * R::kSlabElems; };
+  // Item j of this CTA: its first row of z viewed as [batch * 512, 512],
+  // and its first column.
+  auto row0 = [&](int j) {
+    return (size_t)((blockIdx.x + j * gridDim.x) / R::kSlabs) * kN;
+  };
+  auto col0 = [&](int j) {
+    return (int)((blockIdx.x + j * gridDim.x) % R::kSlabs) * R::kW;
+  };
+  auto load = [&](int j) {
+    Bar* bar = &full[j % kRingStages];
+    Cx<T>* dst = slot(j);
+    mbar_expect_tx(bar, R::kSlabBytes);
+    for (int h = 0; h < kN / kBoxRows; ++h)
+      tile_load(dst + h * kBoxRows * R::kW, zm, 2 * col0(j),
+                (int)row0(j) + h * kBoxRows, bar);
+  };
+  auto store = [&](int j) {
+    const Cx<T>* src = slot(j);
+    for (int h = 0; h < kN / kBoxRows; ++h)
+      tile_store(om, 2 * col0(j), (int)row0(j) + h * kBoxRows,
+                 src + h * kBoxRows * R::kW);
+    bulk_commit();
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kRingStages; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (issuer)
+    for (int j = 0; j < kRingStages && j < n; ++j) load(j);
+  F::build_table(tab, roots, tid, R::kThreads);
+  __syncthreads();  // the twiddle tables
+  for (int j = 0; j < n; ++j) {
+    Cx<T>* s = slot(j);
+    mbar_wait(&full[j % kRingStages], (j / kRingStages) & 1);
+    Cx<T> v[F::kE];
+#pragma unroll
+    for (int m = 0; m < F::kE; ++m)
+      v[m] = s[F::template pos<0>(t, m) * R::kW + w];
+    // kLead: every thread has read the slab before the first exchange
+    // writes over it.
+    F::template forward<R::kW, true>(v, s + w, tab, t);
+    __syncthreads();  // the last exchange's reads
+#pragma unroll
+    for (int m = 0; m < F::kE; ++m)
+      s[out_row<kOrder>(F::template pos<F::kStages - 1>(t, m)) * R::kW + w] =
+          v[m];
+    fence_async_shared();
+    __syncthreads();
+    if (issuer) {
+      store(j);
+      // Slab j - 1 + kRingStages goes into slab j - 1's stage once that
+      // store (one group back) has read it.
+      if (j >= 1 && j - 1 + kRingStages < n) {
+        bulk_wait_read<1>();
+        load(j - 1 + kRingStages);
+      }
+    }
+  }
+  if (issuer) bulk_wait_read<0>();
+}
+
+template <typename T, int kOrder>
+int launch_ring(const Cx<T>* z, Cx<T>* out, const Cx<T>* roots,
+                long long batch, cudaStream_t st) {
+  using R = Ring<T>;
+  auto kernel = ring_chain<T, kOrder>;
+  CUtensorMap zmap{}, omap{};
+  // z and out as [batch * 512, 1024] real scalars; a box is 256 rows of
+  // one slab's 2 kW scalars (128 B).
+  cudaError_t err =
+      tile_map<T>(&zmap, z, batch * kN, 2 * kN, kBoxRows, 2 * R::kW);
+  if (err == cudaSuccess)
+    err = tile_map<T>(&omap, out, batch * kN, 2 * kN, kBoxRows, 2 * R::kW);
+  int ctas = 0;
+  if (err == cudaSuccess) err = smem_limit(kernel, R::kSmem);
+  if (err == cudaSuccess)
+    err = resident_ctas(kernel, R::kThreads, R::kSmem, &ctas);
+  if (err != cudaSuccess) return err;
+  const long long items = batch * R::kSlabs;
+  if (ctas > items) ctas = (int)items;
+  kernel<<<ctas, R::kThreads, R::kSmem, st>>>(zmap, omap, roots, (int)items);
+  return cudaGetLastError();
+}
+
 // out[b] = z[b]^T through kT x kT tiles (padded against bank conflicts).
 template <typename T, int kT>
 __global__ void __launch_bounds__(kThreads)
@@ -385,6 +583,10 @@ int run(const void* zin, void* zout, const void* table, long long batch,
   const Cx<T>* z = static_cast<const Cx<T>*>(zin);
   Cx<T>* out = static_cast<Cx<T>*>(zout);
   const Cx<T>* tab = static_cast<const Cx<T>*>(table);
+  if (batch < 1 || batch > 65535) return cudaErrorInvalidValue;
+  if (kcase == kFwdRing) return launch_ring<T, kOrderR2>(z, out, tab, batch, st);
+  if (kcase == kFwdRingR8)
+    return launch_ring<T, kOrderR8>(z, out, tab, batch, st);
   if (kcase == kTranspose) {
     if (param == 32) return launch_transpose<T, 32>(z, out, batch, st);
     if (param == 64) return launch_transpose<T, 64>(z, out, batch, st);
@@ -422,8 +624,8 @@ int run(const void* zin, void* zout, const void* table, long long batch,
 }  // namespace
 
 // Plain C entry points (bound with ctypes). z, out: [batch, 512, 512]
-// complex of the entry's type; table: the 512 roots, or for cmul the
-// [512, 512] table. Each launches on `stream`, allocates nothing, does not
+// complex of the entry's type, 1 <= batch <= 65535 (the sweeps' grid);
+// table: the 512 roots, or for cmul the [512, 512] table. Each launches on `stream`, allocates nothing, does not
 // synchronize, and returns the launch error.
 #define LOWCUT_STAGES_ENTRY(NAME, T)                                         \
   extern "C" int NAME(const void* z, void* out, const void* table,          \

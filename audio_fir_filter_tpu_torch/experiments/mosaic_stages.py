@@ -21,6 +21,12 @@ in, digit-reversed out for DIF):
 - ``fwd reg``: the shipped forward FFT (``fourstep.cuh`` ``Fft<T, 9>``:
   8 registers per thread, 3 radix-8 stages, 2 exchanges), whose output
   order is the radix-2 chain's (plain version: ``fwd r2``'s);
+- ``fwd ring``, ``fwd ring r8``: the chain's function done the Hopper way
+  (``probe_stages.cu`` ``ring_chain``): a persistent grid that runs
+  ``Fft<T, 9>`` on [512, kW] column slabs fed by TMA tensor-map copies
+  through a ring of shared-memory stages, storing in ``fwd r2``'s /
+  ``fwd r8``'s order (plain versions: theirs); the kernels line's
+  ``probe_stages`` and ``probe_stages2`` rows time them;
 - ``shuffle e=..``: the roll stages ``subroll r2`` / ``laneroll r2``
   (``roll_r2_stage``): y = x[i] + x[i + e] where (i // e) is even, else
   (x[i - e] - x[i]) * w[v] with w[v] = exp(-2 pi i v / 64) for column v,
@@ -32,6 +38,10 @@ in, digit-reversed out for DIF):
 - ``cmul``: times a resident [512, 512] table, the four-step twiddle of
   the kernels at B = 2^18 (``cmul(T)``).
 
+The sweep also times the chains and ``noop`` at [256, 512, 512], 1.07 /
+2.15 GB moved (f32 / f64), far above the 50 MB L2, and at both batches
+``z.clone()`` (the same bytes) and ``torch.fft.fft(z, dim=1)`` (natural
+order, so not the rows' function) as context.
 The XLA calibration rows of the TPU probe have no counterpart here.
 """
 
@@ -49,6 +59,7 @@ from . import _probe
 
 N = 512
 BATCH = 8
+BATCH_LARGE = 256
 _RADIX = {"r2": 2, "r4": 4, "r8": 8}
 
 # name -> (case id of csrc/probe_stages.cu, param)
@@ -59,6 +70,7 @@ CASES = {
     "fwd r2": (3, 0), "fwd r4": (4, 0), "fwd r8": (5, 0),
     "inv r2": (6, 0), "inv r4": (7, 0), "inv r8": (8, 0),
     "fwd+inv": (9, 0), "fwd reg": (13, 0),
+    "fwd ring": (14, 0), "fwd ring r8": (15, 0),
     "shuffle e=8": (10, 8), "shuffle e=1": (10, 1),
     "transpose 32": (11, 32), "transpose 64": (11, 64),
     "cmul": (12, 0),
@@ -75,6 +87,9 @@ def mode_of(z: torch.Tensor) -> str:
     raise ValueError(f"stages take complex64 or complex128, got {z.dtype}")
 
 
+MAX_BATCH = 65535  # the sweeps' grid (csrc/probe_stages.cu)
+
+
 def _check(z: torch.Tensor, name: str) -> None:
     if name not in CASES:
         raise ValueError(f"unknown case {name!r}; one of {sorted(CASES)}")
@@ -82,6 +97,9 @@ def _check(z: torch.Tensor, name: str) -> None:
     if z.dim() != 3 or tuple(z.shape[1:]) != (N, N) or not z.is_contiguous():
         raise ValueError(f"stages take contiguous [batch, {N}, {N}], got "
                          f"{tuple(z.shape)}")
+    if not 1 <= z.shape[0] <= MAX_BATCH:
+        raise ValueError(f"stages take a batch of 1 .. {MAX_BATCH}, got "
+                         f"{z.shape[0]}")
 
 
 def launch_case(z: torch.Tensor, name: str) -> torch.Tensor:
@@ -271,8 +289,10 @@ def reference(z: torch.Tensor, name: str) -> torch.Tensor:
         return z.clone()
     if kcase in (1, 2):
         return dif_stage(z, name[:2], param)
-    if name == "fwd reg":
+    if name in ("fwd reg", "fwd ring"):
         return fft_dif_rows(z, plans["r2"])
+    if name == "fwd ring r8":
+        return fft_dif_rows(z, plans["r8"])
     if name.startswith("fwd "):
         return fft_dif_rows(z, plans[name[4:]])
     if name.startswith("inv "):
@@ -300,59 +320,91 @@ def _bitwise(name: str) -> bool:
     return name == "noop" or name.startswith("transpose")
 
 
-def verify_cases(names, stage_fn, device, row: str) -> dict:
+def verify_cases(names, stage_fn, device, row: str, large=()) -> dict:
+    """Each case against its plain version at [8, 512, 512], and the cases
+    ``large`` at [256, 512, 512] too, in f32 and f64; the row's error is
+    the largest."""
     dev = _probe.card(device)
     errs = {}
     for dtype in (torch.complex64, torch.complex128):
-        z = blocks_input(dtype, dev)
-        mode = mode_of(z)
-        rel = _probe.REL_F64 if mode == "f64" else _probe.REL_F32
         e = 0.0
-        for name in names:
-            e = max(e, _probe.expect(f"stage {mode} {name}", stage_fn(z, name),
-                                     reference(z, name),
-                                     None if _bitwise(name) else rel))
+        for batch, which in ((BATCH, names), (BATCH_LARGE, large)):
+            if not which:
+                continue
+            z = blocks_input(dtype, dev, batch)
+            mode = mode_of(z)
+            rel = _probe.REL_F64 if mode == "f64" else _probe.REL_F32
+            for name in which:
+                e = max(e, _probe.expect(
+                    f"stage {mode} {name} batch {batch}", stage_fn(z, name),
+                    reference(z, name), None if _bitwise(name) else rel))
+            del z
         errs[f"{row}_{mode}"] = e
     torch.cuda.synchronize(dev)
     return errs
 
 
 def run_cases(names, stage_fn, device, reps: int, row: str, key_case: str,
-              title: str) -> dict:
+              title: str, large=()) -> dict:
+    """Times ``names`` at [8, 512, 512] and ``large`` at [256, 512, 512],
+    each batch with the key case's plain version and, as context,
+    ``z.clone()`` (the same bytes) and ``torch.fft.fft`` along the
+    transform axis (natural order, so not a chain's function and never a
+    row's library call); the row is the key case at batch 8."""
     dev = _probe.card(device)
-    rows, kernels = [], {}
-    for dtype in (torch.complex64, torch.complex128):
-        z = blocks_input(dtype, dev)
-        mode = mode_of(z)
-        nbytes = 2 * z.numel() * z.element_size()
-        for name in names:
-            ms = _probe.event_ms(lambda n=name: stage_fn(z, n), reps)
-            rows.append([mode, name, ms, _probe.gbps(nbytes, ms)])
-        ms = _probe.event_ms(lambda: stage_fn(z, key_case), reps)
-        plain = _probe.event_ms(lambda: reference(z, key_case), reps)
-        rows.append([mode, f"plain {key_case}", plain, _probe.gbps(nbytes, plain)])
-        # A complex FFT of N points along each row, 5 N log2 N flops; its
-        # output is in bit-reversed order, which no one PyTorch call gives
-        # (library_ms null).
-        flops = 5.0 * N * math.log2(N) * (z.numel() // N)
-        kernels[f"{row}_{mode}"] = {"ms": ms, "plain_ms": plain,
-                                    "library_ms": None,
-                                    **roofline.bound(nbytes, flops, mode)}
-    lines = _probe.table(title + f" (CUDA events, median of {reps}; GB/s "
-                         "counts one read and one write of the blocks)",
-                         ["mode", "case", "ms", "GB/s"], rows)
+    lines, kernels = [], {}
+    for batch, which in ((BATCH, names), (BATCH_LARGE, large)):
+        if not which:
+            continue
+        rows = []
+        for dtype in (torch.complex64, torch.complex128):
+            z = blocks_input(dtype, dev, batch)
+            mode = mode_of(z)
+            nbytes = 2 * z.numel() * z.element_size()
+            # A complex FFT of N points along each row, 5 N log2 N flops.
+            flops = 5.0 * N * math.log2(N) * (z.numel() // N)
+            bound = roofline.bound(nbytes, flops, mode)
+            for name in which:
+                ms = _probe.event_ms(lambda n=name: stage_fn(z, n), reps)
+                rows.append([mode, name, ms, _probe.gbps(nbytes, ms),
+                             bound["bound_ms"] / ms])
+            ms = _probe.event_ms(lambda: stage_fn(z, key_case), reps)
+            plain = _probe.event_ms(lambda: reference(z, key_case), reps)
+            clone = _probe.event_ms(z.clone, reps)
+            lib = _probe.event_ms(lambda: torch.fft.fft(z, dim=1), reps)
+            for label, t in ((f"plain {key_case}", plain),
+                             ("z.clone() (the same bytes; context)", clone),
+                             ("torch.fft.fft (natural order; context)", lib)):
+                rows.append([mode, label, t, _probe.gbps(nbytes, t),
+                             bound["bound_ms"] / t])
+            if batch == BATCH:
+                # The key case's output is in a digit-reversed order, which
+                # no one PyTorch call gives (library_ms null).
+                kernels[f"{row}_{mode}"] = {"ms": ms, "plain_ms": plain,
+                                            "library_ms": None, **bound}
+            del z
+        lines += _probe.table(
+            title + f" on [{batch}, 512, 512] complex (CUDA events, median "
+            f"of {reps}; GB/s counts one read and one write of the blocks; "
+            "share = bound / ms)", ["mode", "case", "ms", "GB/s", "share"], rows)
     return {"lines": lines, "kernels": kernels}
+
+
+# The chains timed at [256, 512, 512] beside the row's kernel.
+LARGE = ("noop", "fwd r2", "fwd reg", "fwd ring")
 
 
 def verify(device="cuda") -> dict:
     """Every case against its plain version, f32 and f64: bitwise for
-    noop and the transposes, the stated tolerance otherwise."""
-    return verify_cases(tuple(CASES), stage, device, "probe_stages")
+    noop and the transposes, the stated tolerance otherwise; the ring
+    chains at batch 256 too (many slabs a CTA: every stage refilled)."""
+    return verify_cases(tuple(CASES), stage, device, "probe_stages",
+                        large=("fwd ring",))
 
 
 def run(device="cuda", reps: int = 5) -> dict:
     return run_cases(tuple(CASES), stage, device, reps, "probe_stages",
-                     "fwd r2", f"FFT stages on [{BATCH}, 512, 512] complex")
+                     "fwd ring", "FFT stages", large=LARGE)
 
 
 def main() -> None:

@@ -5,7 +5,10 @@ Counterpart of ``experiments/mosaic_stages2.py`` (``pallas_block_op``, the
 inverse 512-point chains as radix 4 (``fft_core.dif_plan``, 5 stages) and
 radix 8 (``fft_core.dif_plan_r8``, 3 stages), beside the shipped radix-2
 sweep (9 stages) and the copy floor, and a [512, 512] transpose through
-64 x 64 shared tiles. The kernels are ``csrc/probe_stages.cu``'s, launched
+64 x 64 shared tiles. ``fwd ring r8`` is ``fwd r8``'s function done the
+Hopper way (``probe_stages.cu`` ``ring_chain``, the kernels line's
+``probe_stages2`` row), timed beside the shipped register FFT (``fwd
+reg``) at [8, 512, 512] and [256, 512, 512]. The kernels are ``csrc/probe_stages.cu``'s, launched
 through :func:`chain` (which counts its own launches); the plain versions
 are :mod:`.mosaic_stages`' (same stages, same order). The TPU probe's XLA
 rows and its full-conv timings with Pallas transposes have no counterpart:
@@ -20,7 +23,8 @@ from . import _probe
 from . import mosaic_stages as ms
 
 CASES = ("noop", "fwd r2", "fwd r4", "fwd r8", "inv r2", "inv r4", "inv r8",
-         "transpose 64")
+         "transpose 64", "fwd reg", "fwd ring r8")
+LARGE = ("noop", "fwd r8", "fwd reg", "fwd ring r8")
 
 launches = {"probe_stages2_f32": 0, "probe_stages2_f64": 0}
 
@@ -39,12 +43,13 @@ def chain(z: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def verify(device="cuda") -> dict:
-    return ms.verify_cases(CASES, chain, device, "probe_stages2")
+    return ms.verify_cases(CASES, chain, device, "probe_stages2",
+                           large=("fwd ring r8",))
 
 
 def run(device="cuda", reps: int = 5) -> dict:
-    return ms.run_cases(CASES, chain, device, reps, "probe_stages2", "fwd r8",
-                        f"r2 / r4 / r8 chains on [{ms.BATCH}, 512, 512] complex")
+    return ms.run_cases(CASES, chain, device, reps, "probe_stages2",
+                        "fwd ring r8", "r2 / r4 / r8 chains", large=LARGE)
 
 
 def main() -> None:

@@ -63,7 +63,13 @@ result line):
    ``mbarrier`` ring) in every mode and split at rows 512, 1024 and 2048,
    and the copy floor's ``cluster`` variant (one plane per thread-block
    cluster, both transposes through distributed shared memory) at 8 and
-   1008 pairs; the cluster occupancy is printed and must be > 0;
+   1008 pairs; the cluster occupancy is printed and must be > 0. The
+   512-point chain redesigned for Hopper (``probe_stages.cu``
+   ``ring_chain``: a persistent grid of tensor-map-fed rings, the
+   ``probe_stages`` and ``probe_stages2`` rows as ``fwd ring`` and ``fwd
+   ring r8``) is held against its plain version at [8, 512, 512] and
+   [256, 512, 512], its ``ptxas`` line must show no stack frame and no
+   spill, and both stage sweeps print their tables at both batches;
 10. the bench contract as a user runs it, ``python3 -m
    audio_fir_filter_tpu_torch.bench`` in subprocesses: ``--fidelity
    --roofline --all --reps 3``, then ``--engine fourstep --reps 3 --e2e
@@ -254,10 +260,9 @@ def phase_build() -> None:
     print(f"native PCM codec: loaded from {pcm_codec._SO}")
 
 
-def _ptxas_summary(log: str) -> str:
-    """One line from ``ptxas -v``: kernel count, register range, and each
-    kernel with a stack frame (local memory: spills or an array the
-    compiler could not keep in registers)."""
+def _ptxas_kernels(log: str) -> list:
+    """[mangled name, registers, stack bytes, spill-store bytes] of each
+    kernel in a ``ptxas -v`` log."""
     kernels = []
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
@@ -267,6 +272,14 @@ def _ptxas_summary(log: str) -> str:
             kernels[-1][2:] = [int(m[1]), int(m[2])]
         elif kernels and (m := re.search(r"Used (\d+) registers", line)):
             kernels[-1][1] = int(m[1])
+    return kernels
+
+
+def _ptxas_summary(log: str) -> str:
+    """One line from ``ptxas -v``: kernel count, register range, and each
+    kernel with a stack frame (local memory: spills or an array the
+    compiler could not keep in registers)."""
+    kernels = _ptxas_kernels(log)
     if not kernels:
         return "no kernels"
     regs = [k[1] for k in kernels]
@@ -279,6 +292,29 @@ def _ptxas_summary(log: str) -> str:
     return (f"{len(kernels)} kernels, {min(regs)}-{max(regs)} registers; "
             f"{len(local)} with a stack frame (stack/spill bytes)"
             + (": " + ", ".join(local) if local else ""))
+
+
+def ring_chain_ptxas() -> str:
+    """The ``ptxas`` line of ``probe_stages.cu``'s ``ring_chain`` kernels
+    (types f32 / f64, output orders r2 / r8): registers, stack and spill
+    bytes each. Fails on a stack frame or a spill: a thread's registers in
+    local memory."""
+    from audio_fir_filter_tpu_torch.ops import _build
+
+    log = (_build.BUILD_DIR / "probe_stages.ptxas.log").read_text()
+    ring = [k for k in _ptxas_kernels(log) if "ring_chain" in k[0]]
+    check(len(ring) == 4, f"{len(ring)} ring_chain kernels in the ptxas log, "
+          "want 4 (f32/f64 x r2/r8)")
+    parts = []
+    for name, regs, stack, spill in ring:
+        m = re.search(r"ring_chainI(\w)Li(\d)E", name)
+        tag = (f"{'f32' if m[1] == 'f' else 'f64'} {('r2', 'r8')[int(m[2])]}"
+               if m else name[:40])
+        parts.append(f"{tag} {regs} regs {stack}/{spill}")
+        check(stack == 0 and spill == 0,
+              f"ring_chain {tag}: {stack} bytes stack, {spill} spilled")
+    return ("ptxas ring_chain (registers, stack/spill bytes): "
+            + ", ".join(parts))
 
 
 def _probe_modules() -> tuple:
@@ -941,6 +977,7 @@ def phase_probes(card: str) -> dict:
     from audio_fir_filter_tpu_torch.experiments.copy_floor_probe import (
         cluster_occupancy, occupancy_line)
 
+    print(ring_chain_ptxas())
     occ = cluster_occupancy("cuda")
     print(occupancy_line(occ))
     check(occ["cluster"] > 0 and occ["cluster16"] > 0,

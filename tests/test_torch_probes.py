@@ -22,12 +22,19 @@ against the JAX package's own functions and NumPy float64:
   ``csrc/probe_floors.cu``: the cluster variant's two all-to-alls through
   distributed shared memory, and ``bw``'s ring of TMA bulk copies (which
   tile each CTA walks, when a stage is refilled, what each bulk copy and
-  ``mbarrier`` phase covers).
+  ``mbarrier`` phase covers);
+- the ring chain of ``csrc/probe_stages.cu`` (``fwd ring``, ``fwd ring
+  r8``): its plain versions are the sweeps', and NumPy mirrors of its store
+  map, its persistent walk, its shared memory and its ring of bulk copies
+  (the model of ``Fft<T, 9>`` is ``test_torch_fft_stages``').
 """
+
+import re
 
 import numpy as np
 import pytest
 import torch
+import test_torch_fft_stages as fs
 
 from audio_fir_filter_tpu_torch.experiments import copy_floor_probe as cfp
 from audio_fir_filter_tpu_torch.experiments import dispatch_floor_probe as dfp
@@ -36,6 +43,7 @@ from audio_fir_filter_tpu_torch.experiments import fused_phase_decomp as fpd
 from audio_fir_filter_tpu_torch.experiments import mosaic_stages as ms
 from audio_fir_filter_tpu_torch.experiments import mosaic_stages2 as ms2
 from audio_fir_filter_tpu_torch.experiments import pallas_micro as pm
+from audio_fir_filter_tpu_torch.ops import _build
 from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
 from audio_fir_filter_tpu_torch.ops import segment_filter as sf
 
@@ -70,7 +78,8 @@ _PLANS = {"r2": ms.r2_plan(512), "r4": ms.dif_plan(512),
 _STAGE_CASES = [("r2 d=128", (("r2", 128),)), ("r2 d=1", (("r2", 1),)),
                 ("r4 d=16", (("r4", 16),)), ("r4 d=1", (("r4", 1),)),
                 ("fwd r2", _PLANS["r2"]), ("fwd r4", _PLANS["r4"]),
-                ("fwd r8", _PLANS["r8"])]
+                ("fwd r8", _PLANS["r8"]), ("fwd ring", _PLANS["r2"]),
+                ("fwd ring r8", _PLANS["r8"])]
 
 
 def _jax_rows(z, plan, inverse=False):
@@ -655,3 +664,238 @@ def test_probe_families_are_built_with_their_argtypes():
     assert args == [p, p, p, ll, i, i, p]
     for name in _build.FAMILIES:
         assert (_build.CSRC / f"{name}.cu").is_file()
+
+
+# ------------------------------------------- mirror: the ring chain
+# csrc/probe_stages.cu ring_chain: CTA c of G walks the items c, c + G, ...
+# of batch x (512 / kW) column slabs [512, kW] (128 B a row, 64 KB), each
+# through a ring of kRingStages shared-memory stages with one mbarrier a
+# stage; Fft<T, 9> in registers with its exchanges through the stage; the
+# slab stored back in the output order. Thread 0 issues the copies: two
+# tensor-map boxes of 256 rows each way a slab.
+
+
+def _cu_const(name):
+    src = (_build.CSRC / "probe_stages.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+
+_RING_S, _BOX_ROWS = _cu_const("kRingStages"), _cu_const("kBoxRows")
+_ELEM = {"f32": 8, "f64": 16}                   # bytes of a complex element
+_KW = {m: 128 // e for m, e in _ELEM.items()}   # transforms a slab
+_SLAB = 512 * 128                               # bytes a slab
+
+
+def _ring_out_row(order, p):
+    """out_row<kOrder>: the row bin bitrev9(p) is stored at."""
+    p = np.asarray(p)
+    if order == "r2":
+        return p
+    return ((fs.bitrev(p >> 6, 3) << 6) | (fs.bitrev((p >> 3) & 7, 3) << 3)
+            | fs.bitrev(p & 7, 3))
+
+
+def _ring_items(c, ctas, items):
+    n = (items - c + ctas - 1) // ctas
+    return [c + j * ctas for j in range(n)]
+
+
+def test_ring_cases_give_the_sweeps_plain_outputs():
+    for dtype in (torch.complex64, torch.complex128):
+        z = torch.from_numpy(_z(20, batch=2)).to(dtype)
+        assert torch.equal(ms.stage(z, "fwd ring"), ms.stage(z, "fwd r2"))
+        assert torch.equal(ms.stage(z, "fwd ring r8"), ms.stage(z, "fwd r8"))
+        assert torch.equal(ms2.chain(z, "fwd ring r8"), ms2.chain(z, "fwd r8"))
+        assert torch.equal(ms2.chain(z, "fwd reg"), ms.stage(z, "fwd r2"))
+
+
+@pytest.mark.parametrize("order", ["r2", "r8"])
+def test_ring_store_map_gives_the_chains_order(order):
+    """Fft<T, 9>'s registers (the NumPy model of test_torch_fft_stages,
+    positions pos<kStages - 1>) stored at out_row: the r2 plan's order
+    (bit-reversed) or the r8 plan's (base-8 digit-reversed), as
+    fc.dif_fft_np gives them."""
+    from audio_fir_filter_tpu.ops import fft_core as fc
+
+    p = fs.Plan(9)
+    t = np.arange(p.NT)
+    rows = np.concatenate([p.pos(p.NS - 1, t, m) for m in range(p.E)])
+    assert sorted(_ring_out_row(order, rows)) == list(range(512))
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((3, 512)) + 1j * rng.standard_normal((3, 512))
+    got = np.empty_like(x)
+    for i in range(len(x)):
+        y = fs.forward(x[i], 9)                 # y[pos(last, t, m)] = v[m]
+        for m in range(p.E):
+            pp = p.pos(p.NS - 1, t, m)
+            got[i, _ring_out_row(order, pp)] = y[pp]
+    want = fc.dif_fft_np(x, _PLANS[order])
+    assert _rel_err(got, want) < 1e-12
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+def test_ring_walk_covers_every_slab_once(mode):
+    kw = _KW[mode]
+    slabs = 512 // kw
+    for batch in (1, 8, 256):
+        items = batch * slabs
+        for resident in (132, 264):
+            ctas = min(resident, items)
+            walked = [i for c in range(ctas)
+                      for i in _ring_items(c, ctas, items)]
+            assert sorted(walked) == list(range(items))
+            assert {(i // slabs, i % slabs * kw) for i in walked} == {
+                (b, v) for b in range(batch) for v in range(0, 512, kw)}
+            # No CTA idles while another has two more items than it.
+            per = [len(_ring_items(c, ctas, items)) for c in range(ctas)]
+            assert max(per) - min(per) <= 1
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+def test_ring_fits_shared_memory_one_cta_a_sm(mode):
+    """The ring, Fft<T, 9>'s table (kTableElems = kL - 1) and a barrier a
+    stage fit a CTA; a second such CTA does not fit the SM, so the grid is
+    one CTA a SM, as the source note says."""
+    smem = _RING_S * _SLAB + (fs.Plan(9).L - 1) * _ELEM[mode] + _RING_S * 8
+    assert smem <= SMEM_PER_CTA < 2 * smem
+
+
+def _ring_copies(mode, item):
+    """The (global byte offset, bytes) runs one item's load brings, and the
+    bytes of each of its copies (two tensor-map boxes of 256 rows); z
+    viewed as [batch * 512, 512] complex."""
+    e, kw = _ELEM[mode], _KW[mode]
+    slabs = 512 // kw
+    row0, col0 = item // slabs * 512, item % slabs * kw
+    box = (kw * e, _BOX_ROWS)                    # inner bytes, rows
+    assert box[0] % 16 == 0 and 2 * kw <= 256 and _BOX_ROWS <= 256
+    runs = [((row0 + h * _BOX_ROWS + r) * 512 + col0) * e
+            for h in range(512 // _BOX_ROWS) for r in range(_BOX_ROWS)]
+    copies = [box[0] * box[1]] * (512 // _BOX_ROWS)
+    return [(a, kw * e) for a in runs], copies
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+def test_ring_copies_match_expect_tx_and_cover_the_blocks(mode):
+    slabs = 512 // _KW[mode]
+    batch = 2
+    runs = []
+    for item in range(batch * slabs):
+        r, copies = _ring_copies(mode, item)
+        assert sum(copies) == _SLAB < 1 << 20    # one expect_tx a slab
+        assert sum(n for _, n in r) == _SLAB
+        runs += r
+    _cover(runs, batch * 512 * 512 * _ELEM[mode])
+
+
+class _RingChain:
+    """One CTA's issuing thread as ring_chain runs it, against a model of
+    its bulk groups, mbarrier phases and stages."""
+
+    def __init__(self, n, stages):
+        self.n, self.S = n, stages
+        self.stage = [None] * stages            # (item j, state, group)
+        self.phase = [0] * stages               # completed loads a stage
+        self.groups = self.read_done = 0
+        self.done = []
+
+    def load(self, j):
+        s = j % self.S
+        prev = self.stage[s]
+        if prev is not None:
+            assert prev[1] == "stored" and prev[2] < self.read_done, \
+                "stage refilled before its store read it"
+        self.stage[s] = (j, "loaded", None)
+        self.phase[s] += 1                      # expect_tx met by the copies
+
+    def wait(self, j):
+        s = j % self.S
+        # mbar_wait(parity (j / S) & 1) returns once use j / S completed.
+        assert self.phase[s] == j // self.S + 1 and self.stage[s][0] == j
+
+    def compute_and_store(self, j):
+        s = j % self.S
+        assert self.stage[s][:2] == (j, "loaded")
+        self.stage[s] = (j, "stored", self.groups)
+        self.groups += 1
+        self.done.append(j)
+
+    def wait_read(self, pending):
+        self.read_done = max(self.read_done, self.groups - pending)
+
+
+def _ring_chain_program(cta):
+    S, n = cta.S, cta.n
+    for j in range(min(S, n)):
+        cta.load(j)
+    for j in range(n):
+        cta.wait(j)
+        cta.compute_and_store(j)
+        if j >= 1 and j - 1 + S < n:
+            cta.wait_read(1)
+            cta.load(j - 1 + S)
+    cta.wait_read(0)
+
+
+@pytest.mark.parametrize("n", range(0, 12))
+def test_ring_refills_a_stage_only_after_its_store_read_it(n):
+    for stages in sorted({2, _RING_S}):
+        cta = _RingChain(n, stages)
+        _ring_chain_program(cta)
+        assert cta.done == list(range(n))
+        assert cta.read_done == cta.groups == n   # every store read at exit
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+def test_ring_shared_accesses_are_free_of_bank_conflicts(mode):
+    """Thread (t, w) = tid >> log2 kW, & (kW - 1): the slab load (row-major,
+    pos<0>), the two exchanges (swizzled, stride kW) and the store in
+    either order; 8-byte elements 16 lanes a phase over 16 bank units,
+    16-byte ones 8 over 8."""
+    kw = _KW[mode]
+    lanes = 16 if mode == "f32" else 8
+    p = fs.Plan(9)
+    lane = np.arange(32)
+    for warp in range(kw * p.NT // 32):
+        tid = warp * 32 + lane
+        w, t = tid % kw, tid // kw
+        for m in range(p.E):
+            pats = [p.pos(0, t, m) * kw + w]
+            pats += [fs.swizzle(p.pos(s, t, m)) * kw + w for s in range(p.NS)]
+            pats += [_ring_out_row(o, p.pos(p.NS - 1, t, m)) * kw + w
+                     for o in ("r2", "r8")]
+            for addr in pats:
+                assert fs._max_conflict(addr, lanes, lanes) == 1
+
+
+@pytest.mark.parametrize("fn,name", [(ms.stage, "fwd ring"),
+                                     (ms2.chain, "fwd ring r8")])
+def test_ring_wrappers_reject_what_the_kernel_does_not_take(fn, name):
+    z = torch.zeros((2, 512, 512), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(torch.zeros((1, 512, 256), dtype=torch.complex64), name)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(z.transpose(1, 2), name)
+    with pytest.raises(ValueError, match="complex64 or complex128"):
+        fn(torch.zeros((1, 512, 512)), name)
+    with pytest.raises(ValueError, match="batch"):
+        fn(torch.zeros((0, 512, 512), dtype=torch.complex64), name)
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        fn(torch.zeros((1, 512, 512), dtype=torch.complex64, device="meta"),
+           name)
+
+
+def test_ring_cases_build_nothing_and_count_no_launch_on_the_cpu(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("a CPU tensor must not build a kernel")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    before = dict(ms.launches), dict(ms2.launches)
+    z = torch.zeros((1, 512, 512), dtype=torch.complex128)
+    ms.stage(z, "fwd ring")
+    ms2.chain(z, "fwd ring r8")
+    assert (dict(ms.launches), dict(ms2.launches)) == before
+    assert ms.CASES["fwd ring"][0] == 14
+    assert ms.CASES["fwd ring r8"][0] == 15
+    assert "fwd ring r8" in ms2.CASES and "fwd ring r8" in ms2.LARGE
+    assert "fwd ring" in ms.LARGE
