@@ -105,9 +105,9 @@
 // of 0 clusters, returns its error and the wrapper raises: there is no
 // fallback to another variant.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "fourstep.cuh"
 #include "tma.cuh"
 
@@ -458,8 +458,6 @@ cf_flat_scatter(const Cx<float>* __restrict__ scratch, float* __restrict__ y) {
 
 // ------------------------------------------- the cluster-resident plane
 
-namespace cg = cooperative_groups;
-
 // A plane of kC CTAs: each holds a slab of kSide / kC rows. kC = 8: 128 KB
 // and 1024 threads a CTA, one CTA a SM; kC = 16 (non-portable): 64 KB and
 // 512 threads, two CTAs a SM. Either way a thread stages 8 float4.
@@ -541,31 +539,15 @@ cf_cluster(const float* __restrict__ x, float* __restrict__ y) {
 template <int kC>
 cudaLaunchConfig_t cluster_config(long long planes, cudaLaunchAttribute* attr,
                                   cudaStream_t st) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(planes * kC));
-  cfg.blockDim = dim3(Plane<kC>::kThreads);
-  cfg.dynamicSmemBytes = Plane<kC>::kSmem;
-  cfg.stream = st;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kC;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+  return cluster_launch_config((unsigned)(planes * kC), Plane<kC>::kThreads,
+                               Plane<kC>::kSmem, kC, attr, st);
 }
 
 // cudaOccupancyMaxActiveClusters of cf_cluster<kC>.
 template <int kC>
 cudaError_t cluster_occupancy(int* clusters) {
-  cudaError_t err = smem_limit(cf_cluster<kC>, Plane<kC>::kSmem);
-  if (err == cudaSuccess && kC > 8)
-    err = cudaFuncSetAttribute(
-        cf_cluster<kC>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config<kC>(kC, &attr, 0);
-  return cudaOccupancyMaxActiveClusters(clusters, cf_cluster<kC>, &cfg);
+  return max_active_clusters(cf_cluster<kC>, kC, Plane<kC>::kThreads,
+                             Plane<kC>::kSmem, clusters);
 }
 
 template <int kC>

@@ -52,9 +52,10 @@ FAMILIES = {
         [_p, _p, _p, _ll, _ll, _ll, _i, _p],
     ),
     "probe_phases": (
-        ("lowcut_probe_phases_f32", "lowcut_probe_phases_f64"),
+        ("lowcut_probe_phases_f32", "lowcut_probe_phases_f64",
+         "lowcut_probe_fused_occupancy"),
         # blocks, out, H, tw4, w1, w2, scratch, pairs, log_n1, log_n2,
-        # variant, stream
+        # variant, stream (the fused variants: pairs = real blocks)
         [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _p],
     ),
     "probe_stages": (

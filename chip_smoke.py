@@ -69,7 +69,13 @@ result line):
    ``probe_stages`` and ``probe_stages2`` rows as ``fwd ring`` and ``fwd
    ring r8``) is held against its plain version at [8, 512, 512] and
    [256, 512, 512], its ``ptxas`` line must show no stack frame and no
-   spill, and both stage sweeps print their tables at both batches;
+   spill, and both stage sweeps print their tables at both batches. The
+   fused block redesigned for Hopper (``probe_phases.cu`` ``fused_block``:
+   one thread-block cluster holds a 2^18 block from its one read to its one
+   write, the ``probe_phases`` rows) is held in all five TPU-probe variants
+   against their plain versions at 128 and 2016 blocks; each mode's
+   active-cluster count is printed and must be > 0, and its ``ptxas`` line
+   must show no stack frame and no spill;
 10. the bench contract as a user runs it, ``python3 -m
    audio_fir_filter_tpu_torch.bench`` in subprocesses: ``--fidelity
    --roofline --all --reps 3``, then ``--engine fourstep --reps 3 --e2e
@@ -315,6 +321,29 @@ def ring_chain_ptxas() -> str:
               f"ring_chain {tag}: {stack} bytes stack, {spill} spilled")
     return ("ptxas ring_chain (registers, stack/spill bytes): "
             + ", ".join(parts))
+
+
+def fused_block_ptxas() -> str:
+    """The ``ptxas`` line of ``probe_phases.cu``'s ``fused_block`` kernels
+    (f32 / f64 x the five variants): registers, stack and spill bytes
+    each. Fails on a stack frame or a spill."""
+    from audio_fir_filter_tpu_torch.ops import _build
+
+    log = (_build.BUILD_DIR / "probe_phases.ptxas.log").read_text()
+    fused = [k for k in _ptxas_kernels(log) if "fused_block" in k[0]]
+    check(len(fused) == 10, f"{len(fused)} fused_block kernels in the ptxas "
+          "log, want 10 (f32/f64 x 5 variants)")
+    names = ("full", "no_tr", "ac_only", "b_only", "copy")
+    parts = []
+    for name, regs, stack, spill in fused:
+        m = re.search(r"fused_blockI(\w)Li(\d+)E", name)
+        tag = (f"{'f32' if m[1] == 'f' else 'f64'} {names[int(m[2]) - 9]}"
+               if m else name[:40])
+        parts.append(f"{tag} {regs} regs {stack}/{spill}")
+        check(stack == 0 and spill == 0,
+              f"fused_block {tag}: {stack} bytes stack, {spill} spilled")
+    return ("ptxas fused_block (registers, stack/spill bytes): "
+            + ", ".join(sorted(parts)))
 
 
 def _probe_modules() -> tuple:
@@ -974,14 +1003,20 @@ def phase_probes(card: str) -> dict:
         errs.update(mod.verify("cuda"))
     print("probes vs plain versions: "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    from audio_fir_filter_tpu_torch.experiments import fused_phase_decomp as fpd
     from audio_fir_filter_tpu_torch.experiments.copy_floor_probe import (
         cluster_occupancy, occupancy_line)
 
     print(ring_chain_ptxas())
+    print(fused_block_ptxas())
     occ = cluster_occupancy("cuda")
     print(occupancy_line(occ))
     check(occ["cluster"] > 0 and occ["cluster16"] > 0,
           "a copy-floor cluster cannot be resident")
+    focc = fpd.fused_occupancy("cuda")
+    print(fpd.occupancy_line(focc))
+    check(all(o["clusters"] > 0 for o in focc.values()),
+          "a fused-block cluster cannot be resident")
     _zero_counts()
     timed = {}
     for mod in mods:

@@ -26,7 +26,14 @@ against the JAX package's own functions and NumPy float64:
 - the ring chain of ``csrc/probe_stages.cu`` (``fwd ring``, ``fwd ring
   r8``): its plain versions are the sweeps', and NumPy mirrors of its store
   map, its persistent walk, its shared memory and its ring of bulk copies
-  (the model of ``Fft<T, 9>`` is ``test_torch_fft_stages``').
+  (the model of ``Fft<T, 9>`` is ``test_torch_fft_stages``');
+- the fused block of ``csrc/probe_phases.cu`` (``fused_block``): the plain
+  versions of ``full`` and ``copy`` against the JAX probe kernel itself
+  (``experiments/fused_phase_decomp.make_variant`` in interpret mode, f32
+  and df64), the real-input split step against ``torch.fft.rfft`` /
+  ``irfft``, the phases composing to the block convolution, each ablation's
+  defined output, NumPy mirrors of the kernel's slab, warp and band maps,
+  and the wrapper's shapes, scratch and device rule.
 """
 
 import re
@@ -268,6 +275,266 @@ def test_tile_layouts_are_inverse_permutations():
         # column tile t is one contiguous run
         assert torch.equal(c.reshape(2, -1)[0, : 128 * tc],
                            s[0, :, :tc].reshape(-1))
+
+
+# ------------------------------------------------------------ fused block
+
+_ROOT = pm.__file__.rsplit("/audio_fir_filter_tpu_torch/", 1)[0]
+
+
+def _jax_fused_probe():
+    """``experiments/fused_phase_decomp.py`` of the JAX package's probes,
+    loaded from its file (``experiments/`` is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_fused_phase_decomp", f"{_ROOT}/experiments/fused_phase_decomp.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_JAX_FLAGS = {"full": dict(do_a=True, do_tr=True, do_b=True, do_c=True),
+              "copy": dict(do_a=False, do_tr=False, do_b=False, do_c=False)}
+
+
+@pytest.mark.parametrize("variant", ["full", "copy"])
+@pytest.mark.parametrize("arith", ["f32", "df64"])
+def test_fused_plain_versions_match_the_jax_probe_kernel(arith, variant,
+                                                         monkeypatch):
+    """The TPU probe's kernel (``make_variant``, its 38,401 seeded taps)
+    run in interpret mode on one pair at B = 2^16, the smallest B those
+    taps allow; the port's spectrum gets the taps reversed, since
+    ``spectrum_layout`` reverses them."""
+    import functools
+
+    from jax.experimental import pallas as pl
+
+    from audio_fir_filter_tpu.ops import fft_core as fc
+    from audio_fir_filter_tpu_torch.experiments import _probe
+
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    jfpd = _jax_fused_probe()
+    b = 1 << 16
+    r, c = fc.fourstep_split(b)
+    x = np.random.default_rng(21).uniform(-1, 1, (1, 2, r, c)).astype(np.float32)
+    a = fc.ARITH_F32 if arith == "f32" else fc.ARITH_DF64
+    yj = np.array(jfpd.make_variant(b, a, **_JAX_FLAGS[variant])(x))
+    taps = np.random.default_rng(0).standard_normal(pm.TAPS) / 196.0
+    cdt = torch.complex64 if arith == "f32" else torch.complex128
+    plan = fpd.fused_plan(torch.from_numpy(sf.spectrum_layout(taps[::-1], b)).to(cdt))
+    got = fpd.fused(torch.from_numpy(x.reshape(2, b)), plan, variant)
+    rel = _probe.REL_F32 if arith == "f32" else _probe.REL_F64
+    _probe.expect(f"fused {arith} {variant}", got,
+                  torch.from_numpy(yj.reshape(2, b)),
+                  None if variant == "copy" else rel)
+
+
+@pytest.mark.parametrize("b", [16, 256, 4096])
+def test_split_step_is_rfft_and_irfft(b):
+    m = b // 2
+    rng = np.random.default_rng(b)
+    x = torch.from_numpy(rng.standard_normal((3, b)))
+    z = torch.complex(x[:, 0::2], x[:, 1::2])
+    X = fpd.split_forward(torch.fft.fft(z))
+    assert _rel_err(X.numpy(), torch.fft.rfft(x).numpy()) < REL_F64
+    hn = np.fft.rfft(rng.standard_normal(b))
+    Y = torch.fft.rfft(x) * torch.from_numpy(hn)
+    zy = torch.fft.ifft(fpd.split_inverse(Y))
+    y = torch.fft.irfft(Y, n=b)
+    assert _rel_err(zy.real.numpy(), y[:, 0::2].numpy()) < REL_F64
+    assert _rel_err(zy.imag.numpy(), y[:, 1::2].numpy()) < REL_F64
+    # alpha, beta: the split, the product and the inverse split in one step
+    ab = fpd.split_coefficients(hn)
+    Z = torch.fft.fft(z).numpy()
+    k = np.arange(m)
+    widely = ab[:, 0] * Z + ab[:, 1] * np.conj(Z[:, (m - k) % m])
+    assert _rel_err(widely, fpd.split_inverse(Y).numpy()) < REL_F64
+
+
+@pytest.mark.parametrize("b,cdt", [(256, torch.complex128), (256, torch.complex64),
+                                   (1 << 12, torch.complex64),
+                                   (1 << 16, torch.complex128)])
+def test_fused_phases_compose_to_the_block_convolution(b, cdt):
+    x = _blocks(3, b, seed=22)
+    plan = fpd.fused_plan(torch.from_numpy(sf.spectrum_layout(_taps(b, 23), b)).to(cdt))
+    rdt = torch.float64 if cdt == torch.complex128 else torch.float32
+    z = fpd._z(x, rdt)
+    y = fpd._real(fpd.cols_inverse(fpd.rows_phase(fpd.cols_forward(z, plan), plan),
+                                   plan))
+    ref = cb.reference(x, pm.conv_plan(plan.H))
+    assert _rel_err(y.numpy(), ref.numpy()) < (REL_F32 if rdt == torch.float32
+                                               else 1e-7)
+    assert torch.equal(fpd.fused(x, plan, "full"), ref)
+    # kernel order of alpha / beta only where the kernel runs (B = 2^18)
+    assert plan.ab_lanes is None and plan.ab.shape == (*sf.split_shape(b // 2), 2)
+
+
+def test_fused_ablations_have_their_defined_outputs():
+    b = fpd.BLOCK
+    x = _blocks(2, b, seed=24)
+    for cdt in (torch.complex64, torch.complex128):
+        H = torch.from_numpy(sf.spectrum_layout(_taps(b, 25), b)).to(cdt)
+        plan, flat = fpd.fused_plan(H), fpd.fused_plan(torch.ones_like(H))
+        rdt = torch.float64 if cdt == torch.complex128 else torch.float32
+        assert torch.equal(fpd.fused(x, plan, "copy"), x)
+        assert torch.equal(fpd.fused(x, plan, "ac_only"), (x.to(rdt) / 256).float())
+        ac = fpd._real(fpd.cols_inverse(fpd.cols_forward(fpd._z(x, rdt), plan), plan))
+        assert _rel_err(ac.numpy(), x.numpy() / 256) < 1e-6
+        # b_only: the row phase on the natural rows; with a flat spectrum
+        # (alpha 1, beta 0) each row's FFT and unscaled inverse: x * 256
+        assert torch.equal(fpd.fused(x, plan, "b_only"),
+                           fpd._real(fpd.rows_phase(fpd._z(x, rdt), plan)))
+        assert _rel_err(fpd.fused(x, flat, "b_only").numpy(), x.numpy() * 256) < 1e-6
+        # no_tr: a permutation around the row phase, the identity when the
+        # row phase is one, not the convolution otherwise
+        assert _rel_err(fpd.fused(x, flat, "no_tr").numpy(), x.numpy()) < 1e-6
+        no_tr, full = fpd.fused(x, plan, "no_tr"), fpd.fused(x, plan, "full")
+        assert bool(torch.isfinite(no_tr).all())
+        assert _rel_err(no_tr.numpy(), full.numpy()) > 0.1
+        assert plan.ab_lanes.shape == (512, 8, 32, 2)
+        # register m of lane t holds column q = 8 t + m
+        assert torch.equal(plan.ab_lanes[:, 3, 5], plan.ab[:, 8 * 5 + 3])
+    small = fpd.fused_plan(torch.from_numpy(sf.spectrum_layout(_taps(256, 26), 256)))
+    with pytest.raises(ValueError, match="B = 2\\^18"):
+        fpd.fused(_blocks(2, 256, seed=27), small, "no_tr")
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+def test_band_as_slab_is_the_kernels_band_read_as_its_slab(mode):
+    """CTA r's home holds its band as [kCols / kW][512][kW] (batch, row,
+    column); no_tr reads those bytes as its slab [kRows][256], whose row j
+    the row phase treats as row prow(r, j)."""
+    c, w = fpd.CLUSTER[mode], fpd.THREADS[mode] // 64
+    cols, rows = 256 // c, 512 // c
+    z = torch.arange(2 * 512 * 256, dtype=torch.float64).reshape(2, 512, 256)
+    s = fpd.band_as_slab(z, mode)
+    for r in (0, 1, c - 1):
+        home = np.stack([z[1, :, cols * r + w * bb: cols * r + w * (bb + 1)].numpy()
+                         for bb in range(cols // w)]).reshape(-1)
+        for j in (0, rows // 2, rows - 1):
+            assert np.array_equal(s[1, fpd.prow(mode, r, j)].numpy(),
+                                  home[256 * j: 256 * (j + 1)])
+    assert torch.equal(fpd.band_as_slab(s, mode, inverse=True), z)
+
+
+# Mirrors of csrc/probe_phases.cu's maps (prow is fpd.prow).
+
+def _warp_rows(rows, r, i):
+    """Slab rows of row pair i (warp i % warps takes pairs i, i + warps, ...)."""
+    if r:
+        return i, rows - 1 - i
+    if i == 0:
+        return 0, 1
+    h = 1 << (i.bit_length() - 1)
+    return i + h, 5 * h - 1 - i
+
+
+def _brev8(v):
+    return int(fs.bitrev(np.int64(v), 8))
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+def test_fused_maps_pair_every_bin_within_a_warp(mode):
+    c = fpd.CLUSTER[mode]
+    rows, warps = 512 // c, fpd.THREADS[mode] // 32
+    assert rows // 2 % warps == 0           # kPairs pairs a warp
+    m = fpd.BLOCK // 2
+    partner = fpd._partner_np(m).reshape(512, 256)
+    assert sorted(fpd.prow(mode, r, j) for r in range(c)
+                  for j in range(rows)) == list(range(512))
+    for r in range(c):
+        seen = []
+        for i in range(rows // 2):
+            ja, jb = _warp_rows(rows, r, i)
+            seen += [ja, jb]
+            pa, pb = fpd.prow(mode, r, ja), fpd.prow(mode, r, jb)
+            own = r == 0 and i == 0
+            for q in range(256):
+                # the kernel's partner of (pa, q) and of (pb, q)
+                qa = _brev8((256 - _brev8(q)) & 255) if own else 255 - q
+                assert partner[pa, q] == (pa if own else pb) * 256 + qa
+                assert partner[pb, q] == (pb if own else pa) * 256 + 255 - q
+        assert sorted(seen) == list(range(rows))
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+def test_fused_exchange_covers_every_band_place_once(mode):
+    """Element n2 = pos<0>(t, m) = t + 32 m of row p goes to CTA n2 // kCols,
+    region (n2 % kCols) // kW, place p kW + n2 % kW (band_addr): each place
+    of every CTA's home once; a warp's lanes cover runs of kW elements."""
+    c, w = fpd.CLUSTER[mode], fpd.THREADS[mode] // 64
+    cols = 256 // c
+    nbat = cols // w
+    p, n2 = np.meshgrid(np.arange(512), np.arange(256), indexing="ij")
+    cc = n2 % cols
+    flat = ((n2 // cols) * nbat + cc // w) * 512 * w + p * w + cc % w
+    assert np.array_equal(np.sort(flat.ravel()), np.arange(512 * 256))
+    elem = 8 if mode == "f32" else 16
+    lanes = (((np.arange(32) % cols) // w) * 512 * w + np.arange(32) % cols % w) * elem
+    runs = lanes.reshape(-1, w)
+    assert (np.diff(runs, axis=1) == elem).all()
+    # shared memory: the 128 KB home, the 64 KB stage, the two stage-table
+    # sets (511 + 255 entries), two mbarriers; one CTA a SM
+    smem = 131072 + 65536 + (511 + 255) * elem + 16
+    assert smem <= SMEM_PER_CTA < 2 * smem
+    assert (w * 64, nbat * w * c) == (fpd.THREADS[mode], 256)
+
+
+def test_fused_wrapper_rejects_shapes_and_launches_with_no_scratch(monkeypatch):
+    from audio_fir_filter_tpu_torch.experiments import _probe
+
+    H = torch.from_numpy(sf.spectrum_layout(_taps(256, 28), 256)).to(torch.complex64)
+    small = fpd.fused_plan(H)
+    with pytest.raises(ValueError, match="blocks must be"):
+        fpd.fused(torch.zeros((2, 128)), small, "full")
+    with pytest.raises(ValueError, match="blocks must be"):
+        fpd.fused(torch.zeros((2, 256), dtype=torch.float64), small, "full")
+    with pytest.raises(ValueError, match="blocks must be"):
+        fpd.fused(torch.zeros((0, 256)), small, "full")
+    with pytest.raises(ValueError, match="variant"):
+        fpd.fused(torch.zeros((2, 256)), small, "passes full")
+    with pytest.raises(ValueError, match="complex64 or complex128"):
+        fpd.fused_plan(H.real.contiguous())
+    calls, made = [], []
+    monkeypatch.setattr(_probe, "on_card", lambda *t: True)
+    monkeypatch.setattr(_probe, "launch", lambda *a: calls.append(a))
+    for name in ("empty", "zeros", "empty_like"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _r=real, _n=name, **k: (
+            made.append(_n), _r(*a, **k))[1])
+    with pytest.raises(ValueError, match="B = 2\\^18"):
+        fpd.fused(torch.zeros((2, 256)), small, "full")
+    plan = fpd.fused_plan(torch.ones((512, 512), dtype=torch.complex128))
+    before = dict(fpd.launches)
+    x = torch.zeros((3, fpd.BLOCK))
+    made.clear()
+    for v in fpd.VARIANTS:
+        out = fpd.fused(x, plan, v)
+        assert out.shape == x.shape and out.dtype == torch.float32
+    assert made == ["empty_like"] * len(fpd.VARIANTS)     # the output only
+    assert [a[9:] for a in calls] == [(None, 3, 9, 8, fpd.FUSED_IDS[v])
+                                      for v in fpd.VARIANTS]
+    assert all(a[1] == "lowcut_probe_phases_f64" for a in calls)
+    assert fpd.launches["probe_phases_f64"] == before["probe_phases_f64"] + 5
+
+
+def test_fused_cpu_path_builds_nothing_and_counts_no_launch(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("a CPU tensor must not build a kernel")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    before = dict(fpd.launches)
+    plan = fpd.fused_plan(torch.from_numpy(sf.spectrum_layout(_taps(1024, 29), 1024)))
+    for v in ("full", "copy", "ac_only", "b_only"):
+        fpd.fused(_blocks(2, 1024, seed=30), plan, v)
+    assert dict(fpd.launches) == before
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        fpd.fused_occupancy("cuda")
+    with pytest.raises(ValueError, match="time a CUDA card"):
+        fpd.fused_occupancy("cpu")
 
 
 # ------------------------------------------------------- floors, copies
@@ -657,7 +924,8 @@ def test_probe_families_are_built_with_their_argtypes():
                        "lowcut_probe_cluster_occupancy")
     assert args == [p, p, p, ll, ll, ll, i, p]
     entries, args = _build.FAMILIES["probe_phases"]
-    assert entries == ("lowcut_probe_phases_f32", "lowcut_probe_phases_f64")
+    assert entries == ("lowcut_probe_phases_f32", "lowcut_probe_phases_f64",
+                       "lowcut_probe_fused_occupancy")
     assert args == [p] * 7 + [ll, i, i, i, p]
     entries, args = _build.FAMILIES["probe_stages"]
     assert entries == ("lowcut_probe_stages_f32", "lowcut_probe_stages_f64")
