@@ -2,7 +2,7 @@
 device, in samples/s.
 
     python3 -m audio_fir_filter_tpu_torch.bench [--device {cuda,cpu}] \\
-        [--roofline] [--fidelity] [--all] [--scaling] [--e2e [--e2e-hours H]] [...]
+        [--roofline] [--fidelity] [--all] [--scaling] [...]
 
 Counterpart of the JAX package's root ``bench.py``, with its flags plus
 ``--device`` (default ``cuda``) and its stdout contract: exactly one JSON
@@ -42,11 +42,9 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import os
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -58,8 +56,6 @@ from .ops import overlap_save as osv
 from .ops import roofline
 from .ops import segment_filter as sf
 from .utils.device import resolve_device
-
-ROOT = Path(__file__).resolve().parent.parent
 
 # The share of the card's free memory a timed segment may take.
 _MEMORY_SHARE = 0.8
@@ -372,96 +368,6 @@ def fidelity_report(freq: float, slope: float, fs: float, precision: str,
     return gate_err, gate_bits
 
 
-def e2e_report(hours: float = 1.0, device="cuda") -> None:
-    """Whole-tool wall time: synthesize an ``hours``-long 96 kHz stereo
-    24-bit WAV, time its write, parse + decode and re-encode at full
-    scale, then run ``bin/lowcut-torch --json-metrics`` over the whole file
-    on ``device`` and report its stage split."""
-    import resource
-    import shutil
-    import tempfile
-
-    from . import audio
-    from .audio import synth
-
-    dev = resolve_device(device)
-    fs = 96000.0
-    n = int(hours * 3600 * fs)
-    tmp = tempfile.mkdtemp(prefix="lowcut_torch_e2e_")
-    try:
-        t0 = time.perf_counter()
-        blob = b"\x5a" * (64 << 20)
-        with open(f"{tmp}/probe", "wb") as f:
-            f.write(blob)
-            f.flush()
-            os.fsync(f.fileno())
-        dt = time.perf_counter() - t0
-        os.unlink(f"{tmp}/probe")
-        del blob
-        log(f"e2e: raw disk write {64 * 1.048576 / dt:.0f} MB/s (64 MiB fsync probe)")
-        log(f"e2e: synthesizing {hours:g} h 96 kHz stereo 24-bit WAV "
-            f"({n} frames, {n * 6 / 1e9:.3f} GB data chunk)")
-        t0 = time.perf_counter()
-        # 2^24-frame chunks keep the float64 intermediates small.
-        xs = np.empty((2, n), np.float32)
-        for s0 in range(0, n, 1 << 24):
-            s1 = min(n, s0 + (1 << 24))
-            t = np.arange(s0, s1, dtype=np.float64) / fs
-            c = (0.4 * np.sin(2 * np.pi * 220.0 * t)
-                 + 0.2 * np.sin(2 * np.pi * 4.0 * t)).astype(np.float32)
-            xs[0, s0:s1] = c
-            xs[1, s0:s1] = 0.7 * c
-        t_gen = time.perf_counter() - t0
-        full = f"{tmp}/full.wav"
-        t0 = time.perf_counter()
-        synth.create_audio_file(full, xs, fs, encoding=audio.Encoding.PCM_24)
-        t_write = time.perf_counter() - t0
-        del xs
-        samples = 2 * n
-        t0 = time.perf_counter()
-        data = audio.read_audio(full)
-        t_read = time.perf_counter() - t0
-        if data.samples.shape != (2, n):
-            raise RuntimeError(f"e2e: read back {data.samples.shape}, want (2, {n})")
-        t0 = time.perf_counter()
-        audio.write_audio(f"{tmp}/copy.wav", data)
-        t_enc = time.perf_counter() - t0
-        os.unlink(f"{tmp}/copy.wav")
-        log(f"e2e host stages at full scale ({samples / 1e6:.1f} Msamples):")
-        log(f"  synthesize        : {t_gen:9.3f}s")
-        for name, t in (("encode+write PCM24", t_write),
-                        ("parse+decode PCM24", t_read),
-                        ("re-encode+write   ", t_enc)):
-            log(f"  {name}: {t:9.3f}s ({samples / t / 1e6:8.1f} Ms/s)")
-        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-        log(f"  host residency: peak RSS {rss / 1e9:.3f} GB of the bench process "
-            f"({rss / data.samples.nbytes:.2f}x the "
-            f"{data.samples.nbytes / 1e9:.3f} GB float32 payload)")
-        del data
-
-        log(f"e2e: bin/lowcut-torch on the whole {hours:g} h file, device "
-            f"{device_name(dev)}")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, str(ROOT / "bin" / "lowcut-torch"),
-             "--json-metrics", "-O", "--device", dev.type, full,
-             f"{tmp}/out.wav"],
-            capture_output=True, text=True, cwd=ROOT)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"e2e: lowcut-torch exited {proc.returncode}: "
-                               f"{proc.stderr[-2000:]}")
-        metrics = json.loads(proc.stderr.strip().splitlines()[-1])
-        stages = {k: metrics[k] for k in
-                  ("read", "design", "filter", "normalize", "write")}
-        log(f"  wall {wall:.3f}s with torch start-up ({hours * 3600 / wall:.0f}x "
-            f"realtime); stages: {json.dumps(stages)}; sum "
-            f"{sum(stages.values()):.3f}s; filter stage "
-            f"{metrics.get('samples_per_sec', 0.0) / 1e6:.1f} Msamples/s")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-
-
 # The BASELINE.json configurations, as (name, freq, slope, fs, channels).
 # Config 4 (a 64-file batch) exercises host orchestration; its kernel
 # equals config 1's.
@@ -524,9 +430,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the sharded-filter scaling report (stderr): the "
                          "halo-cost model at this run's measured rates, the "
                          "mesh in one process, and a 2-process exchange")
-    ap.add_argument("--e2e", action="store_true",
-                    help="run the whole-tool wall-time decomposition (stderr)")
-    ap.add_argument("--e2e-hours", type=float, default=1.0)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="'cuda' = the CUDA card (exit 1 if there is none), "
                          "'cpu' = the CPU (plain versions)")
@@ -542,7 +445,7 @@ def _build_kernels(args) -> None:
 
     names = {"conv_blocks" if osv.resolve_engine(args.engine) in
              osv.BLOCK_ENGINES else "segment_filter"}
-    if args.all or args.e2e or args.scaling:
+    if args.all or args.scaling:
         names.add("segment_filter")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
@@ -564,9 +467,6 @@ def main(argv=None) -> int:
 
     if dev.type == "cuda":
         _build_kernels(args)
-    if args.e2e:
-        e2e_report(args.e2e_hours, dev)
-
     fs = args.sample_rate
     fidelity_err = None
     if args.fidelity:

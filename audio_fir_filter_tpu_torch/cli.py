@@ -15,7 +15,11 @@ for all three.
 ``--profile DIR``: a ``torch.profiler`` trace of the whole run (CPU
 activity, plus CUDA activity on the card), written to
 ``DIR/trace.json`` (Chrome trace format) when the run ends, on the error
-path too.
+path too. The program's spans (``utils/spans``) show in it as
+``lowcut.<name>`` beside the kernels they launched: each file's stages
+(``lowcut.stage.read`` ... ``lowcut.stage.write``), each filter call and
+the segment kernel's wrapper. ``--json-metrics`` prints the stages' host
+seconds, read from the same spans.
 
 ``--mesh DxT``: shard channels over D and the sample axis over T of this
 process's devices (on ``--device cuda`` its cards, on ``--device cpu`` D*T

@@ -24,9 +24,13 @@ import torch
 
 from . import segment_filter as sf
 
-# Kernel launches per mode, counted by :func:`conv_real_blocks` where it
-# launches and nowhere else.
+# Per mode, counted by :func:`conv_real_blocks` where it calls the C entry
+# point and nowhere else: ``launches``, the calls of the C entry point,
+# and ``kernels``, the kernels those calls issued (three passes for each
+# scratch chunk of the entry's loop, ``csrc/conv_blocks.cu``), reckoned on
+# the host from the same chunking.
 launches = {"f32": 0, "f64": 0}
+kernels = {"f32": 0, "f64": 0}
 
 
 def _check(blocks: torch.Tensor, plan) -> None:
@@ -71,7 +75,8 @@ def _launch(blocks: torch.Tensor, plan) -> torch.Tensor:
     if H.shape != sf.split_shape(b) or not H.is_contiguous():
         raise ValueError(f"plan spectrum must be contiguous {sf.split_shape(b)}")
     tw4, w1, w2 = sf.kernel_tables(b, H.dtype, dev)
-    chunk = sf.scratch_pairs(nb // 2, b, H.element_size())
+    pairs = nb // 2
+    chunk = sf.scratch_pairs(pairs, b, H.element_size())
     scratch = torch.empty((chunk, b), dtype=H.dtype, device=dev)
     l1, l2 = sf.split(b)
     fn = getattr(_build.library("conv_blocks"), f"lowcut_conv_blocks_{mode}")
@@ -84,6 +89,7 @@ def _launch(blocks: torch.Tensor, plan) -> torch.Tensor:
         raise RuntimeError(f"block convolution kernel ({mode}) failed: "
                            f"CUDA error {rc}")
     launches[mode] += 1
+    kernels[mode] += sf.KERNELS_PER_CHUNK * sf.entry_chunks(pairs, chunk)
     return out
 
 

@@ -36,6 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils import spans
 from ..utils.device import resolve_device
 from . import conv_blocks as cb
 from . import segment_filter as sf
@@ -195,9 +196,10 @@ def block_count(plan: OverlapSavePlan, out_len: int) -> int:
 
 
 def launches_per_call(plan: OverlapSavePlan, channels: int, out_len: int) -> int:
-    """Kernel launches of one filter call of ``channels`` x ``out_len``:
-    one on the segment path (the kernel walks its scratch chunks itself),
-    one per ``conv_chunk`` blocks on the block path."""
+    """Launches (calls of a kernel's C entry point, as the wrappers'
+    ``launches`` count them) of one filter call of ``channels`` x
+    ``out_len``: one on the segment path (the entry point walks its scratch
+    chunks itself), one per ``conv_chunk`` blocks on the block path."""
     if channels == 0 or out_len == 0:
         return 0
     if plan.engine == PALLAS:
@@ -224,7 +226,7 @@ def call_bytes(plan: OverlapSavePlan, channels: int, out_len: int) -> int:
     b, elt = plan.block_size, plan.H.element_size()
     x = 4 * channels * (out_len + plan.m)
     if plan.engine == PALLAS:
-        pairs = channels * ((-(-out_len // plan.hop) + 1) // 2)
+        pairs = sf.call_pairs(channels, out_len, plan.hop)
         return x + 4 * channels * out_len + sf.scratch_pairs(pairs, b, elt) * b * elt
     nb = block_count(plan, out_len)
     blocks = 4 * channels * nb * b
@@ -288,12 +290,24 @@ def _filter_peak(x: torch.Tensor, plan: OverlapSavePlan, left: int,
     return _block_filter_peak(x, plan, left, out_len)
 
 
+def _filter(x, plan: OverlapSavePlan, left: int, out_len: int | None):
+    """One call of the filters, in the ``filter`` span: ``x`` as [C, N]
+    on the plan's device, filtered from ``left`` for ``out_len`` frames
+    (N when None)."""
+    with spans.span("filter") as s:
+        x, squeeze = _as_input(x, plan)
+        n = x.shape[1] if out_len is None else out_len
+        if s:
+            s.set(engine=plan.engine, precision=plan.precision,
+                  channels=x.shape[0], frames=n)
+        y, peak = _filter_peak(x, plan, left, n)
+    return (y[0] if squeeze else y), peak
+
+
 def same_filter_peak(x, plan: OverlapSavePlan):
     """Filter [N] or [C, N] with 'same' semantics; returns (y float32 on the
     plan's device, peak max|y| as a 0-d tensor)."""
-    x, squeeze = _as_input(x, plan)
-    y, peak = _filter_peak(x, plan, plan.mo2, x.shape[1])
-    return (y[0] if squeeze else y), peak
+    return _filter(x, plan, plan.mo2, None)
 
 
 def extended_filter_peak(xe, plan: OverlapSavePlan, out_len: int):
@@ -302,9 +316,7 @@ def extended_filter_peak(xe, plan: OverlapSavePlan, out_len: int):
     primitive of host-side segmentation: halos replace the zero padding
     except at the true signal edges. The peak covers only the ``out_len``
     returned samples, so a short last segment needs no host re-scan."""
-    xe, squeeze = _as_input(xe, plan)
-    y, peak = _filter_peak(xe, plan, 0, out_len)
-    return (y[0] if squeeze else y), peak
+    return _filter(xe, plan, 0, out_len)
 
 
 def same_filter(x, plan: OverlapSavePlan) -> torch.Tensor:

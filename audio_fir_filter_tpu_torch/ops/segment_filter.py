@@ -29,13 +29,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import spans
+
 FAST = "fast"
 HIGH = "high"
 
-# Kernel launches per mode, counted by :func:`segment_filter` where it
-# launches and nowhere else (chip_smoke.py reads them to show the main
-# path went through the kernel).
+# Per mode, counted by :func:`segment_filter` where it calls the C entry
+# point and nowhere else (chip_smoke.py reads them to show the main path
+# went through the kernel): ``launches``, the calls of the C entry point
+# (one a call on the card), and ``kernels``, the kernels those calls
+# issued, KERNELS_PER_CHUNK for each scratch chunk of the entry's loop
+# (``run_split`` in ``csrc/segment_filter.cuh``), reckoned on the host
+# from the same chunking (:func:`entry_chunks` of :func:`scratch_pairs`).
 launches = {"f32": 0, "f64": 0, "i16": 0}
+kernels = {"f32": 0, "f64": 0, "i16": 0}
+
+# Kernels the C entry point issues per scratch chunk: its three passes.
+KERNELS_PER_CHUNK = 3
 
 # One FFT side is at most 2^13 points (the kernel's shared-memory tile).
 _MAX_LOG_SIDE = 13
@@ -63,6 +73,18 @@ def scratch_pairs(pairs: int, b: int, element_size: int) -> int:
     grid's y limit and :data:`_SCRATCH_BYTES`. The kernel walks the pairs
     in chunks of this many."""
     return max(1, min(pairs, _MAX_GRID_Y, _SCRATCH_BYTES // (b * element_size)))
+
+
+def call_pairs(channels: int, out_len: int, hop: int) -> int:
+    """Pairs of B-point blocks one call filters: each channel's hops, in
+    pairs (one complex FFT a pair), rounded up."""
+    return channels * ((-(-out_len // hop) + 1) // 2)
+
+
+def entry_chunks(pairs: int, chunk: int) -> int:
+    """Scratch chunks the C entry point's loop walks for ``pairs`` pairs,
+    ``chunk`` (:func:`scratch_pairs`) at a time."""
+    return -(-pairs // chunk)
 
 
 def segment_framing(m: int, b: int) -> tuple[int, int]:
@@ -188,12 +210,12 @@ def segment_filter(x: torch.Tensor, plan, left: int, out_len: int,
     with ``i16_io``); ``peak`` is a 0-d float32 tensor on ``x``'s device
     (for int16 the peak of |PCM code|). CUDA tensors run the kernel, CPU
     tensors :func:`reference`."""
+    if x.device.type == "cuda":
+        return _launch(x, plan, left, out_len, i16_io)
     _check(x, plan, left, out_len, i16_io)
-    if x.device.type == "cpu":
-        return reference(x, plan, left, out_len, i16_io)
-    if x.device.type != "cuda":
+    if x.device.type != "cpu":
         raise ValueError(f"segment filter runs on 'cuda' or 'cpu', not {x.device}")
-    return _launch(x, plan, left, out_len, i16_io)
+    return reference(x, plan, left, out_len, i16_io)
 
 
 def mode_of(plan, i16_io: bool = False) -> str:
@@ -205,25 +227,29 @@ def mode_of(plan, i16_io: bool = False) -> str:
 
 
 def _launch(x, plan, left, out_len, i16_io):
-    mode = mode_of(plan, i16_io)
-    c = x.shape[0]
-    y = torch.empty((c, out_len), dtype=x.dtype, device=x.device)
-    peak = torch.zeros((), dtype=torch.float32, device=x.device)
-    if c == 0 or out_len == 0:
-        return y, peak
-    run_entry("segment_filter", f"lowcut_segment_filter_{mode}", x, y, peak,
-              plan, left, out_len)
+    with spans.span("segment.prepare") as prep:
+        _check(x, plan, left, out_len, i16_io)
+        mode = mode_of(plan, i16_io)
+        c = x.shape[0]
+        y = torch.empty((c, out_len), dtype=x.dtype, device=x.device)
+        peak = torch.zeros((), dtype=torch.float32, device=x.device)
+        if c == 0 or out_len == 0:
+            return y, peak
+        kernels[mode] += run_entry("segment_filter", f"lowcut_segment_filter_{mode}",
+                                   x, y, peak, plan, left, out_len, prep=prep)
     launches[mode] += 1
     return y, peak
 
 
 def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
-              *extra) -> None:
+              *extra, prep=spans.NULL) -> int:
     """Launch ``entry`` of ``csrc/<lib>.cu`` on x's device with the segment
     filter's arguments (its tables, a scratch chunk, the split) and
     ``extra`` before the stream: the shipped kernel, or the ablation probe
-    (``csrc/probe_segment.cu``, which adds a variant id). Raises if the
-    launch failed."""
+    (``csrc/probe_segment.cu``, which adds a variant id). ``prep``, the
+    caller's open ``segment.prepare`` span, gets the scratch bytes and ends
+    here; the entry point is called in the span ``segment.launch``.
+    Returns the kernels it issued; raises if the launch failed."""
     from . import _build
 
     dev = x.device
@@ -233,13 +259,18 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     if H.shape != split_shape(b) or not H.is_contiguous():
         raise ValueError(f"plan spectrum must be contiguous {split_shape(b)}")
     tw4, w1, w2 = kernel_tables(b, H.dtype, dev)
-    hop = b - m
-    pairs = c * ((-(-out_len // hop) + 1) // 2)
+    pairs = call_pairs(c, out_len, b - m)
     chunk = scratch_pairs(pairs, b, H.element_size())
     scratch = torch.empty((chunk, b), dtype=H.dtype, device=dev)
     l1, l2 = split(b)
     fn = getattr(_build.library(lib), entry)
-    with torch.cuda.device(dev):
+    chunks = entry_chunks(pairs, chunk)
+    if prep:
+        prep.set(scratch_bytes=scratch.nbytes)
+    prep.end()
+    with spans.span("segment.launch") as s, torch.cuda.device(dev):
+        if s:
+            s.set(chunks=chunks, kernels=KERNELS_PER_CHUNK * chunks)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), peak.data_ptr(), H.data_ptr(),
                 tw4.data_ptr(), w1.data_ptr(), w2.data_ptr(),
@@ -248,6 +279,7 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     if rc != 0:
         raise RuntimeError(f"segment filter kernel {entry} failed: "
                            f"CUDA error {rc}")
+    return KERNELS_PER_CHUNK * chunks
 
 
 def reference(x: torch.Tensor, plan, left: int, out_len: int,

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import collections
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -42,7 +41,7 @@ from .. import audio
 from ..models import make_model
 from ..utils.errors import FileExists
 from ..utils.options import FilterOptions
-from .process_file import design_plan, filter_and_normalize
+from .process_file import design_plan, filter_and_normalize, stage
 
 # Files decoded ahead of the device. Bounded so a batch of hour-long files
 # holds at most PREFETCH + 2 decoded buffers in host memory.
@@ -56,9 +55,11 @@ def run_batch(inputs, dest_dir, opts: FilterOptions, *,
     three-stage pipeline.
 
     ``metrics_cb(metrics_dict, dest_path)`` is invoked per completed file
-    (from a writer thread, serialized by an internal lock). ``manifest`` is
-    an optional :class:`.manifest.BatchManifest`; completed files are
-    recorded after their write lands and already-done files are skipped.
+    (from a writer thread, serialized by an internal lock); the dict holds
+    each stage's host seconds (read, design, filter, normalize, write).
+    ``manifest`` is an optional :class:`.manifest.BatchManifest`; completed
+    files are recorded after their write lands and already-done files are
+    skipped.
     """
     inputs = [Path(p) for p in inputs]
     dest_dir = Path(dest_dir)
@@ -81,9 +82,8 @@ def run_batch(inputs, dest_dir, opts: FilterOptions, *,
 
     def write_task(dest_path: Path, data, filtered, input_path: Path,
                    metrics: dict) -> None:
-        t0 = time.perf_counter()
-        audio.write_audio(dest_path, data, samples=filtered)
-        metrics["write"] = time.perf_counter() - t0
+        with stage(metrics, "write"):
+            audio.write_audio(dest_path, data, samples=filtered)
         if manifest is not None:
             manifest.mark_done(input_path)
         if metrics_cb is not None:
@@ -140,16 +140,14 @@ def run_batch(inputs, dest_dir, opts: FilterOptions, *,
                 raise FileExists(str(dest))
 
             metrics = {}
-            t0 = time.perf_counter()
-            data = fut.result()  # FileNotFound/parse errors surface here
-            metrics["read"] = time.perf_counter() - t0  # ~0 when prefetched
+            with stage(metrics, "read"):  # ~0 when prefetched
+                data = fut.result()  # FileNotFound/parse errors surface here
 
             print(f"Processing file: {ip.name}")
             show_status("Creating sinc kernel for this file's sample rate.")
-            t0 = time.perf_counter()
-            plan, precision = design_plan(model, data, opts, device,
-                                          show_status)
-            metrics["design"] = time.perf_counter() - t0
+            with stage(metrics, "design"):
+                plan, precision = design_plan(model, data, opts, device,
+                                              show_status)
 
             filtered, max_mag = filter_and_normalize(
                 data, plan, precision, opts, metrics, show_status,

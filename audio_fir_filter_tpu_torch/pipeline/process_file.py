@@ -23,8 +23,8 @@ same stage order, status lines and metrics keys:
 
 from __future__ import annotations
 
+import contextlib
 import sys
-import time
 
 import numpy as np
 
@@ -34,10 +34,21 @@ from ..audio.format import Encoding
 from ..models import make_model
 from ..ops import segment_filter as sf
 from ..parallel.mesh import local_devices, make_mesh
+from ..utils import spans
 from ..utils.options import FilterOptions, resolve_precision
 from ..utils.progress import ProgressBar
 from .stream import (filter_array_streamed, filter_array_streamed_i16,
                      sharded_filter_streamed)
+
+
+@contextlib.contextmanager
+def stage(t: dict, name: str):
+    """The body in the span ``stage.<name>`` (:func:`spans.timed`, recorded
+    when recording is on); its host seconds go to ``t[name]``, which
+    ``--json-metrics`` prints."""
+    with spans.timed(f"stage.{name}") as s:
+        yield
+    t[name] = s.seconds
 
 
 def _use_i16_route(opts, precision: str, plan, data) -> bool:
@@ -68,49 +79,48 @@ def design_plan(model, data, opts: FilterOptions, device, show_status):
 def filter_and_normalize(data, plan, precision: str, opts: FilterOptions,
                          t: dict, show_status, show_progress: bool):
     """Filter one decoded file on the plan's device and apply the normalize
-    rule; fills ``t["filter"]`` and ``t["normalize"]`` and returns
-    ``(samples, peak)``. Shared by :func:`process_file` and the batch, so
-    a file's output is the same either way."""
+    rule, in the stages ``filter`` and ``normalize`` (:func:`stage`), and
+    return ``(samples, peak)``. Shared by :func:`process_file` and the
+    batch, so a file's output is the same either way."""
     show_status("Filtering.")
     total = data.num_frames * data.num_channels
     bar = ProgressBar(total, enabled=show_progress and sys.stdout.isatty())
-    t0 = time.perf_counter()
-    filtered = max_mag = None
-    if opts.sharded():
-        rows, cols = opts.mesh_shape
-        mesh = make_mesh((rows, cols),
-                         local_devices(plan.device, rows * cols))
-        filtered, max_mag = sharded_filter_streamed(
-            data.samples, plan, mesh, progress_cb=bar.update)
-    elif _use_i16_route(opts, precision, plan, data):
-        x16 = np.asarray(data.samples * np.float32(32768.0), np.int16)
-        y16, peak16, saturated = filter_array_streamed_i16(
-            x16, plan, progress_cb=bar.update)
-        if saturated:
-            show_status("Clipping detected; refiltering at float "
-                        "precision for normalize.")
-            bar.clear()
-        else:
-            filtered = np.asarray(y16, np.float32) / np.float32(32768.0)
-            max_mag = peak16 / 32768.0
-    if filtered is None:
-        filtered, max_mag = filter_array_streamed(
-            data.samples, plan, progress_cb=bar.update)
-    t["filter"] = time.perf_counter() - t0
+    with stage(t, "filter"):
+        filtered = max_mag = None
+        if opts.sharded():
+            rows, cols = opts.mesh_shape
+            mesh = make_mesh((rows, cols),
+                             local_devices(plan.device, rows * cols))
+            filtered, max_mag = sharded_filter_streamed(
+                data.samples, plan, mesh, progress_cb=bar.update)
+        elif _use_i16_route(opts, precision, plan, data):
+            x16 = np.asarray(data.samples * np.float32(32768.0), np.int16)
+            y16, peak16, saturated = filter_array_streamed_i16(
+                x16, plan, progress_cb=bar.update)
+            if saturated:
+                show_status("Clipping detected; refiltering at float "
+                            "precision for normalize.")
+                bar.clear()
+            else:
+                filtered = np.asarray(y16, np.float32) / np.float32(32768.0)
+                max_mag = peak16 / 32768.0
+        if filtered is None:
+            filtered, max_mag = filter_array_streamed(
+                data.samples, plan, progress_cb=bar.update)
     bar.final()
 
-    t0 = time.perf_counter()
-    if (max_mag > 1.0 or opts.normalize) and max_mag > 0.0:
-        show_status("Doing audio normalize.")
-        filtered = _scale_common(filtered, max_mag)
-    t["normalize"] = time.perf_counter() - t0
+    with stage(t, "normalize"):
+        if (max_mag > 1.0 or opts.normalize) and max_mag > 0.0:
+            show_status("Doing audio normalize.")
+            filtered = _scale_common(filtered, max_mag)
     return filtered, max_mag
 
 
 def process_file(input_path, output_path, opts: FilterOptions,
                  show_progress: bool = True, device="cuda") -> dict:
     """Filter one audio file on ``device``. Returns per-stage timing
-    metrics (seconds) plus frames, channels, sample_rate, peak and
+    metrics (seconds: read, design, filter, normalize, write, the spans of
+    :func:`stage`) plus frames, channels, sample_rate, peak and
     precision."""
     t = {}
 
@@ -119,26 +129,24 @@ def process_file(input_path, output_path, opts: FilterOptions,
             print(msg)
 
     show_status("Opening input file.")
-    t0 = time.perf_counter()
-    data = audio.read_audio(input_path)
-    t["read"] = time.perf_counter() - t0
+    with stage(t, "read"):
+        data = audio.read_audio(input_path)
 
     name = getattr(input_path, "name", None) or str(input_path).rsplit("/", 1)[-1]
     print(f"Processing file: {name}")
 
     show_status("Creating sinc kernel for this file's sample rate.")
-    t0 = time.perf_counter()
-    model = make_model(opts.filter_type, opts.freq, opts.slope, opts.freq_hi)
-    plan, precision = design_plan(model, data, opts, device, show_status)
-    t["design"] = time.perf_counter() - t0
+    with stage(t, "design"):
+        model = make_model(opts.filter_type, opts.freq, opts.slope,
+                           opts.freq_hi)
+        plan, precision = design_plan(model, data, opts, device, show_status)
 
     filtered, max_mag = filter_and_normalize(data, plan, precision, opts, t,
                                              show_status, show_progress)
 
     show_status("Writing output file.")
-    t0 = time.perf_counter()
-    audio.write_audio(output_path, data, samples=filtered)
-    t["write"] = time.perf_counter() - t0
+    with stage(t, "write"):
+        audio.write_audio(output_path, data, samples=filtered)
 
     show_status("")
     t["frames"] = data.num_frames

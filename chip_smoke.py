@@ -14,8 +14,12 @@ result line):
 3. segment kernel vs its plain PyTorch version on the card at the main
    path's shapes (2 channels, 30 s of audio, B = 2^18): high (M = 38,400 at
    96 kHz), fast (M = 38,400) and i16 (M = 17,640 at 44.1 kHz) — error,
-   peak, launch count and median device times (CUDA events around each
-   call queued behind a sleep kernel, ``experiments/_probe.event_ms``);
+   peak, launch count, the ``kernels`` count held against the kernels the
+   entry point launched in a ``torch.profiler`` trace of the call (the
+   passes that ran on the card, as far as the trace kept them, may not
+   exceed it), and median device times
+   (CUDA events around each call queued behind a sleep kernel,
+   ``experiments/_probe.event_ms``);
 4. a float64 direct-convolution oracle on excerpts (head, a block seam,
    tail) of the phase-3 kernel outputs; then kernel vs plain version at
    small edge shapes (B 256-2048, 1-3 channels, halo-extended input), and
@@ -23,8 +27,9 @@ result line):
    above), so every compiled side 2^1 .. 2^13 runs as N1 and as N2;
 5. block-convolution kernel vs its plain version at the block path's shape
    for the same 2 x 30 s at 96 kHz (M = 38,400, B = 2^18: blocks
-   [28, 2^18]), f64 and f32, over full blocks — error, launch count,
-   median device times as in phase 3 and the passes' occupancy; then small
+   [28, 2^18]), f64 and f32, over full blocks — error, launch and
+   ``kernels`` counts and median device times as in phase 3, and the
+   passes' occupancy; then small
    edge shapes (B 256-2048, nb 2-6), every B = 2^k, k = 2 .. 26 (nb = 2),
    and the whole block path at T = 201, B = 256;
 6. the main path through the CLI entry point, in-process: (a) a 10-minute
@@ -78,15 +83,16 @@ result line):
    must show no stack frame and no spill;
 10. the bench contract as a user runs it, ``python3 -m
    audio_fir_filter_tpu_torch.bench`` in subprocesses: ``--fidelity
-   --roofline --all --reps 3``, then ``--engine fourstep --reps 3 --e2e
-   --e2e-hours 0.05`` (a 3-minute file through the whole tool). Each exits
-   0 with one JSON stdout line (value > 0), the fidelity gate passes,
+   --roofline --all --reps 3``, then ``--engine fourstep --reps 3``. Each
+   exits 0 with one JSON stdout line (value > 0), the fidelity gate passes,
    every timed run's output was held against the float64 oracle at the
    timed shape, and each run's launch report names its kernels; the
    reports are printed;
 11. ``--profile DIR`` through the CLI on file (a), counters zeroed before
    and read after: the Chrome trace exists and names the segment kernel's
-   passes (``cols_forward``, ``rows_multiply``, ``cols_inverse``); then
+   passes (``cols_forward``, ``rows_multiply``, ``cols_inverse``), and each
+   ``lowcut.segment.launch`` span in it holds as many kernel launches as
+   its call's ``kernels`` count; then
    file (a)'s samples through ``filter_array_streamed`` under
    ``torch.profiler`` in a ``record_function`` window: every host<->device
    copy in it is a pinned one, and the device's busy share over the window
@@ -380,6 +386,54 @@ def _counts() -> dict:
     return out
 
 
+# The passes of the segment and block kernels' C loops, by kernel name.
+PASSES = ("cols_forward", "rows_multiply", "cols_inverse", "pairs_forward",
+          "pairs_inverse")
+
+
+def _host_launches(events: list, span: str | None = None) -> list:
+    """Trace us of every kernel launch the host made (CUDA runtime
+    ``cudaLaunchKernel*`` events) in a Chrome trace, inside the events
+    named ``span`` when given, one list per such event (all launches in
+    one list when not)."""
+    at = sorted(float(e["ts"]) for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("name", "").startswith("cudaLaunchKernel"))
+    if span is None:
+        return [at]
+    return [[a for a in at if t0 <= a <= t1]
+            for t0, t1 in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                                 for e in events if e.get("name") == span)]
+
+
+def _device_passes(events: list) -> int | None:
+    """Kernel passes (``PASSES``) that ran on the card in a Chrome trace;
+    None when the trace holds no kernel at all. Late in a long process the
+    profiler may keep only some of the card's kernel records (seen after
+    phase 4), so this is a lower bound."""
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        return None
+    return sum(any(p in k for p in PASSES) for k in kernels)
+
+
+def _traced_passes(fn, span: str | None = None):
+    """``fn()``'s result, the kernels the host launched for it (inside the
+    trace events ``span`` when given) and the passes that ran on the card
+    (None: no device activity kept), from a ``torch.profiler`` trace."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return out, sum(map(len, _host_launches(events, span))), _device_passes(events)
+
+
 def _time_ms(fn, reps: int = 10) -> float:
     """Median device ms of ``fn()``, each call queued behind a sleep kernel
     so the events do not count the wrapper's host latency."""
@@ -422,10 +476,15 @@ def phase_kernels() -> dict:
             x = np.clip(np.rint(x * 32768), -32768, 32767).astype(np.int16)
         xd = torch.from_numpy(x).cuda()
         n = x.shape[1]
-        before = sf.launches[mode]
-        yk, pk = sf.segment_filter(xd, plan, plan.mo2, n, i16_io=i16)
-        torch.cuda.synchronize()
-        check(sf.launches[mode] == before + 1, f"{mode}: launch not counted")
+        before = sf.launches[mode], sf.kernels[mode]
+        (yk, pk), host, ran = _traced_passes(
+            lambda: sf.segment_filter(xd, plan, plan.mo2, n, i16_io=i16),
+            "lowcut.segment.launch")
+        check(sf.launches[mode] == before[0] + 1, f"{mode}: launch not counted")
+        counted = sf.kernels[mode] - before[1]
+        check(counted == host > 0 and (ran or 0) <= counted,
+              f"{mode}: {counted} kernels counted, {host} launched by the entry "
+              f"point and {ran} passes on the card in the trace")
         yp, pp = sf.reference(xd, plan, plan.mo2, n, i16_io=i16)
         yk_h = yk.cpu().numpy().astype(np.float64)
         yp_h = yp.cpu().numpy().astype(np.float64)
@@ -592,10 +651,13 @@ def phase_conv_kernels() -> dict:
                             nb).contiguous().view(-1, plan.block_size)
         check(tuple(blocks.shape) == (28, 1 << 18),
               f"conv {mode}: blocks {tuple(blocks.shape)} != (28, 2^18)")
-        before = cb.launches[mode]
-        yk = cb.conv_real_blocks(blocks, plan)
-        torch.cuda.synchronize()
-        check(cb.launches[mode] == before + 1, f"conv {mode}: launch not counted")
+        before = cb.launches[mode], cb.kernels[mode]
+        yk, host, ran = _traced_passes(lambda: cb.conv_real_blocks(blocks, plan))
+        check(cb.launches[mode] == before[0] + 1, f"conv {mode}: launch not counted")
+        counted = cb.kernels[mode] - before[1]
+        check(counted == host > 0 and (ran or 0) <= counted,
+              f"conv {mode}: {counted} kernels counted, {host} launched and "
+              f"{ran} passes on the card in the trace")
         yp = cb.reference(blocks, plan)
         yk_h = yk.cpu().numpy().astype(np.float64)
         yp_h = yp.cpu().numpy().astype(np.float64)
@@ -1041,7 +1103,7 @@ BENCH_RUNS = (
     # arguments, the kernels each run must report launched
     (["--fidelity", "--roofline", "--all", "--reps", "3"],
      ("segment_filter_f64", "segment_filter_i16")),
-    (["--engine", "fourstep", "--reps", "3", "--e2e", "--e2e-hours", "0.05"],
+    (["--engine", "fourstep", "--reps", "3"],
      ("conv_blocks_f64",)),
 )
 
@@ -1089,14 +1151,26 @@ def phase_bench(card: str) -> None:
 def phase_profile(card: str, files: dict, tmp: Path) -> None:
     """Phase 11: file (a) through the CLI with ``--profile DIR``, counters
     zeroed before and read after; the Chrome trace must exist and name the
-    segment kernel's three passes."""
+    segment kernel's three passes, and each of the program's
+    ``lowcut.segment.launch`` spans in it must hold as many kernel launches
+    as that call's ``kernels`` count says. (Late in a long process the
+    profiler may keep only some of the card's kernel records, so the
+    passes on the card bound the count from below.)"""
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+    from audio_fir_filter_tpu_torch.utils import spans
+
     prof = tmp / "profile"
     out = _out(files["a"], "prof")
     _zero_counts()
+    kernels0 = sf.kernels["f64"]
+    spans.clear()
     t0 = time.perf_counter()
     rc, err = _cli_rc([str(files["a"]), str(out), "--profile", str(prof), "-v"])
     wall = time.perf_counter() - t0
     counts = _counts()
+    kernels = sf.kernels["f64"] - kernels0
+    recorded = [s["info"]["kernels"] for s in spans.spans()
+                if s["name"] == "segment.launch"]
     check(rc == 0, f"--profile run exited {rc}: {err}")
     check(counts["segment_filter_f64"] > 0,
           f"--profile run launched no segment kernel: {counts}")
@@ -1111,9 +1185,16 @@ def phase_profile(card: str, files: dict, tmp: Path) -> None:
                 per_pass[p] = (n + 1, us + float(e.get("dur", 0.0)))
     check(set(per_pass) == {"cols_forward", "rows_multiply", "cols_inverse"},
           f"trace names {sorted(per_pass)} of the segment kernel's passes")
+    per_call = list(map(len, _host_launches(events, "lowcut.segment.launch")))
+    check(per_call == recorded and sum(per_call) == kernels > 0
+          and sum(n for n, _ in per_pass.values()) <= kernels,
+          f"kernels launched in each lowcut.segment.launch span {per_call}, the "
+          f"spans' kernels {recorded}, {kernels} counted, passes on the card "
+          f"{per_pass}")
     print(f"--profile (a) on {card}: {wall:.1f} s with the profiler, trace "
           f"{trace.stat().st_size / 1e6:.1f} MB, {len(events)} events; launches "
-          f"{ {k: v for k, v in counts.items() if v} }; kernel passes (count, "
+          f"{ {k: v for k, v in counts.items() if v} }; kernels a call "
+          f"{per_call}; kernel passes (count, "
           f"device us): {per_pass}; host<->device copies in the whole run "
           f"(count, MB) {_copies(events)}")
     _profile_filter_window(card, files, tmp)

@@ -2,14 +2,13 @@
 on ``--device cpu`` at a tiny size (B = 1024, 2-4 segment blocks, 1-2
 reps), where the wrappers take their plain versions: the stdout contract,
 the roofline model against a hand count, the fidelity gate, ``--all``,
-``--e2e``, ``--scaling`` (the model's rows, the mesh in one process and
+``--scaling`` (the model's rows, the mesh in one process and
 the exchange measured between two gloo processes), and the refusal of
 ``cuda`` without a card."""
 
 import json
 import math
 
-import numpy as np
 import pytest
 import torch
 
@@ -244,15 +243,6 @@ def test_segment_bytes_reckons_the_block_path_above_the_segment_path():
     # Segment path: input, output and a 256 MiB scratch.
     assert osv.call_bytes(seg, 2, frames) == io + (256 << 20)
     assert osv.call_bytes(blk, 2, frames) > io + 2 * 4 * 2 * 1008 * (1 << 18)
-
-
-def test_e2e_runs_the_cli_over_the_whole_file(capsys):
-    bench.e2e_report(hours=0.0002, device="cpu")
-    err = capsys.readouterr().err
-    assert "parse+decode PCM24" in err and "host residency" in err
-    stages = json.loads(err.split("stages: ")[1].split("; sum")[0])
-    assert set(stages) == {"read", "design", "filter", "normalize", "write"}
-    assert all(np.isfinite(v) and v >= 0 for v in stages.values())
 
 
 @pytest.mark.parametrize("precision,bits", [("high", 24), ("fast", 16)])

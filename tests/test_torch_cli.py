@@ -229,6 +229,9 @@ def test_profile_writes_a_chrome_trace(tmp_path, capsys, engine):
     names = _trace_names(prof / "trace.json")
     # The plain versions' FFTs ran inside the traced window.
     assert any("fft" in n for n in names), sorted(names)[:20]
+    # The program's spans: each stage of the file.
+    assert {f"lowcut.stage.{k}" for k in ("read", "design", "filter", "normalize",
+                                          "write")} <= names
 
 
 def test_profile_trace_is_written_on_the_error_path(tmp_path, capsys):
