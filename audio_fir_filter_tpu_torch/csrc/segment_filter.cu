@@ -27,9 +27,9 @@
 // 96 kHz stereo is 14 pairs, 59 MB in f64 and 29 MB in f32, around the
 // 50 MB L2):
 //   1. forward columns: gather the pair's two windows straight from the
-//      signal into registers, length-N1 DIF FFT down each column (natural
-//      in, bit-reversed out), times the four-step twiddle, stored from the
-//      registers;
+//      signal (through a ring of shared-memory stages in f64, below),
+//      length-N1 DIF FFT down each column (natural in, bit-reversed out),
+//      times the four-step twiddle, stored from the registers;
 //   2. rows: length-N2 DIF FFT, times H (host-laid-out in this exact
 //      bit-reversed order, so no reordering happens anywhere), inverse
 //      length-N2 DIT FFT (bit-reversed in, natural out), each row read and
@@ -44,11 +44,23 @@
 // conflict-free shared-memory exchanges and 16 warps per SM in f64, 32 in
 // f32. For 2 x 30 s at 2^18 the passes now run 1.3-1.7x above their floor
 // (0.052 / 0.071 / 0.049 ms in f64), a size whose scratch the L2 holds
-// (in part, in f64); the kernel takes 0.178 ms (f64), 0.103 (f32) and
-// 0.049 (i16) against 0.61, 0.33 and 0.20 ms for the plain version on
-// cuFFT (PERF.md). At the bench's 1008 hops the scratch streams through
+// (in part, in f64); the kernel takes 0.168 ms (f64; 0.178 before pass
+// 1's ring), 0.103 (f32) and 0.050 (i16) against 0.61, 0.33 and 0.20 ms
+// for the plain version on cuFFT (PERF.md). At the bench's 1008 hops the scratch streams through
 // device memory; experiments/fast_decomp_r05.py (csrc/probe_segment.cu)
-// splits that time by part. fourstep.cuh holds the FFT engine, the
+// splits that time by part. There pass 1 in f64 ran furthest from its
+// floor: 3.71 us a pair against 2.1-2.2 us for its 4.19 MB of scratch
+// stores and ~2 MB of signal at the 2.87 TB/s copy rate. Its registers
+// hold one 512-thread CTA an SM, so nothing overlapped one tile's gather,
+// FFT and stores. It is now persistent (segment_filter.cuh Pass1): the
+// resident CTAs walk the (pair, column tile) items, build the twiddle
+// tables once, and cp.async the next item's signal into a ring of two
+// stages while the current one is transformed: 2.85 us a pair (-23 %;
+// passes 2 and 3 4.22 and 2.81 us as before; 2 x 1 h at 96 kHz: call
+// p95 -7.7 %). f32 and i16 run two CTAs an SM, which already overlap, and
+// there a ring ran slower (it takes the L1 the gather stages through), so
+// they keep one CTA an item: 1.75 / 1.93 / 2.04 us a pair (NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md). fourstep.cuh holds the FFT engine, the
 // passes' shared halves and rows_multiply (shared with conv_blocks.cu),
 // and says why tensor cores are not used; segment_filter.cuh holds the
 // signal gather, the valid-hop scatter, the peak and the launch loop, with
@@ -80,6 +92,13 @@ int run(const IO* x, IO* y, float* peak, const void* H, const void* tw4,
   });
 }
 
+template <typename T, typename IO>
+int pass1_occupancy_of(int log_n1, int log_n2, int* out) {
+  return with_split(log_n1, log_n2, [&](auto sp) {
+    return pass1_occupancy<T, IO, decltype(sp)>(out);
+  });
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each launches on `stream`,
@@ -101,3 +120,17 @@ int run(const IO* x, IO* y, float* peak, const void* H, const void* tw4,
 LOWCUT_ENTRY(lowcut_segment_filter_f32, float, float)
 LOWCUT_ENTRY(lowcut_segment_filter_f64, double, float)
 LOWCUT_ENTRY(lowcut_segment_filter_i16, float, int16_t)
+
+// Pass 1 of one mode (0 f32, 1 f64, 2 i16) at one split: out[8] ints, [CTAs
+// per SM, threads, dynamic shared bytes, registers, local-memory bytes,
+// ring depth, column tiles a pair, resident CTAs].
+extern "C" int lowcut_segment_pass1_occupancy(int mode, int log_n1, int log_n2,
+                                              void* out) {
+  int* o = static_cast<int*>(out);
+  switch (mode) {
+    case 0: return pass1_occupancy_of<float, float>(log_n1, log_n2, o);
+    case 1: return pass1_occupancy_of<double, float>(log_n1, log_n2, o);
+    case 2: return pass1_occupancy_of<float, int16_t>(log_n1, log_n2, o);
+    default: return cudaErrorInvalidValue;
+  }
+}

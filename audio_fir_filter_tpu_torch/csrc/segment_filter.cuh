@@ -90,50 +90,235 @@ struct Ablate {
 };
 using Shipped = Ablate<>;
 
-// Pass 1: forward column FFTs of pair (pair0 + blockIdx.y), columns
-// [blockIdx.x * kW, +kW), gathered straight from the signal.
+// Pass 1's copies: cp.async of one 4-byte word into shared memory, with
+// src_bytes = 0 for a zero word (nothing is read). Each thread waits for
+// its own groups and reads back only the words it copied itself, so no
+// barrier guards the ring.
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The word of sample p a copy takes: p itself for float; for int16 the
+// aligned word that holds p (a 2-byte sample has no 4-byte copy of its
+// own; the word never leaves the 4-byte-aligned granule of a sample the
+// signal holds), and the half p sits in.
+__device__ __forceinline__ const void* sample_word(const float* p) { return p; }
+__device__ __forceinline__ const void* sample_word(const int16_t* p) {
+  return reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(p) &
+                                       ~uintptr_t(3));
+}
+template <typename T>
+__device__ __forceinline__ T word_sample(const float*, uint32_t u, int) {
+  return load_sample<T>(__uint_as_float(u));
+}
+template <typename T>
+__device__ __forceinline__ T word_sample(const int16_t*, uint32_t u, int half) {
+  return load_sample<T>(static_cast<int16_t>(u >> (16 * half)));
+}
+
+// Shared memory a CTA may use.
+constexpr size_t kCtaSmemMax = 232448;
+
+// Pass 1's items: item = local pair * kTiles + column tile, kTiles tiles
+// of kW columns a pair.
+//
+// Where Cols aims at one CTA an SM (kMinBlocks == 1: f64 at 512-point and
+// longer columns, f32 at 8192), no other CTA on the SM hides one item's
+// gather, FFT and stores behind another's, so the pass is persistent: CTA
+// b of G (the CTAs the card holds at once) walks items b, b + G, b + 2G,
+// ..., builds its twiddle tables once, and gathers each item's signal
+// (its pair's two windows at its kW columns) into a ring of kDepth
+// shared-memory stages, kDepth - 1 items ahead of the one it transforms:
+// word (win * kE + m) * kThreads + tid of a stage is register m of window
+// win of thread tid. kDepth is what a CTA's shared memory holds beside
+// the tables and the exchange tile, at most 2 (1 at 8192-point columns:
+// the same loop, unpipelined). A third stage fits at 2^18 but takes the
+// L1 that the pass's loads stage through: 3.08-3.16 us a pair against
+// 2.82-2.85 at depth 2 (PERF.md).
+//
+// Where it aims at two or more (f32 and i16 at 2^18, f64 below 512-point
+// columns), those CTAs already overlap one another's phases, and a ring's
+// stages would come out of that L1 too: at 2^18 in f32 a two-stage ring
+// made the pass 1.35x slower, one stage 1.12x (PERF.md). There kDepth =
+// 0: one CTA an item (column tile blockIdx.x of pair blockIdx.y),
+// gathering straight into its registers.
+template <typename T, typename IO, class S>
+struct Pass1 {
+  using C = Cols<T, S>;
+  using F = typename C::F;
+  static constexpr int kTiles = S::kN2 / C::kW, kLogTiles = ilog2(kTiles);
+  static constexpr int kStageWords = 2 * F::kE * C::kThreads;
+  static constexpr size_t kStageBytes = (size_t)kStageWords * 4;
+  static constexpr int kDepth =
+      C::kMinBlocks > 1
+          ? 0
+          : cclamp((int)((kCtaSmemMax - C::kSmem) / kStageBytes), 1, 2);
+  static constexpr size_t kSmem = C::kSmem + (size_t)kDepth * kStageBytes;
+  static_assert(kSmem <= kCtaSmemMax, "the ring must fit a CTA");
+
+  // An item's pair (local to the chunk), channel frame offset, first
+  // window start and first column.
+  struct Item {
+    long long pl, base, s0;
+    int c0;
+    __device__ Item(const Geometry& g, long long pair, int tile) {
+      pl = pair;
+      c0 = tile * C::kW;
+      const long long p = g.pair0 + pl;
+      const long long ch = p / g.pairs_per_ch, k = p % g.pairs_per_ch;
+      base = ch * g.n_in;
+      s0 = 2 * k * g.hop - g.left;
+    }
+    __device__ Item(const Geometry& g, long long it)
+        : Item(g, it >> kLogTiles, (int)(it & (kTiles - 1))) {}
+  };
+
+  // Without a ring: thread (t, w)'s registers of item c straight from the
+  // signal (zero outside [0, n_in)).
+  __device__ static __forceinline__ void load(Cx<T> (&v)[F::kE],
+                                              const IO* __restrict__ x,
+                                              const Geometry& g, const Item& c,
+                                              int t, int w) {
+    const IO* xc = x + c.base;
+#pragma unroll
+    for (int m = 0; m < F::kE; ++m) {
+      const long long n = (long long)F::template pos<0>(t, m) * S::kN2 + c.c0 + w;
+      const long long i0 = c.s0 + n, i1 = i0 + g.hop;
+      v[m].re = (i0 >= 0 && i0 < g.n_in) ? load_sample<T>(xc[i0]) : T(0);
+      v[m].im = (i1 >= 0 && i1 < g.n_in) ? load_sample<T>(xc[i1]) : T(0);
+    }
+  }
+
+  // Start the copies of item `it` into stage st (zero words outside
+  // [0, n_in)).
+  __device__ static __forceinline__ void gather(const IO* __restrict__ x,
+                                                uint32_t* st, const Geometry& g,
+                                                long long it, int t, int w,
+                                                int tid) {
+    const Item c(g, it);
+    const IO* xc = x + c.base;
+#pragma unroll
+    for (int win = 0; win < 2; ++win) {
+      const long long s = c.s0 + win * g.hop + c.c0 + w;
+#pragma unroll
+      for (int m = 0; m < F::kE; ++m) {
+        const long long i = s + (long long)F::template pos<0>(t, m) * S::kN2;
+        const bool in = i >= 0 && i < g.n_in;
+        cp_async4(st + (win * F::kE + m) * C::kThreads + tid,
+                  sample_word(in ? xc + i : x), in ? 4 : 0);
+      }
+    }
+  }
+
+  // Thread tid's registers of item c from stage st, once its copies landed.
+  __device__ static __forceinline__ void read(Cx<T> (&v)[F::kE],
+                                              const uint32_t* st,
+                                              const IO* __restrict__ x,
+                                              const Geometry& g, const Item& c,
+                                              int w, int tid) {
+    // The half of its word each window's samples sit in (int16 only; rows
+    // step by N2, which is even).
+    const long long a =
+        (long long)(reinterpret_cast<uintptr_t>(x) / sizeof(IO)) + c.base +
+        c.s0 + c.c0 + w;
+    const int h0 = (int)(a & 1), h1 = (int)((a + g.hop) & 1);
+#pragma unroll
+    for (int m = 0; m < F::kE; ++m) {
+      v[m].re = word_sample<T>(x, st[m * C::kThreads + tid], h0);
+      v[m].im = word_sample<T>(x, st[(F::kE + m) * C::kThreads + tid], h1);
+    }
+  }
+};
+
+// The registers of the no_gather ablation: nvcc cannot fold x == nullptr
+// (the wrapper passes the signal, which is never read), and the registers
+// get distinct multiples of it, so no butterfly after sees a constant or
+// two equal inputs.
+template <typename T, typename IO, int E>
+__device__ __forceinline__ void opaque_zeros(Cx<T> (&v)[E], const IO* x) {
+  const T zero = static_cast<T>(x == nullptr);
+#pragma unroll
+  for (int m = 0; m < E; ++m) {
+    v[m].re = zero * static_cast<T>(2 * m + 1);
+    v[m].im = zero * static_cast<T>(2 * m + 2);
+  }
+}
+
+// Pass 1: forward column FFTs of the chunk's `items` (pair, column tile)
+// items, each gathered straight from the signal (Pass1: through the ring,
+// or into the registers of a CTA of its own), stored to its pair's
+// scratch (cols_forward_store). Grid: pass1_grid.
 template <typename T, typename IO, class S, class A = Shipped>
 __global__ void __launch_bounds__(Cols<T, S>::kThreads, Cols<T, S>::kMinBlocks)
 cols_forward(const IO* __restrict__ x, Cx<T>* __restrict__ scratch,
              const Cx<T>* __restrict__ tw4, const Cx<T>* __restrict__ w1,
-             Geometry g) {
+             Geometry g, long long items) {
   using C = Cols<T, S>;
   using F = typename C::F;
+  using P = Pass1<T, IO, S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Cx<T>* tab = reinterpret_cast<Cx<T>*>(smem_raw);
+  Cx<T>* s = tab + F::kTableElems;
+  const Cx<T>* tw = F::kGlobalTw ? w1 : tab;
   const int tid = threadIdx.x, w = tid & (C::kW - 1), t = tid >> C::kLogW;
-  const long long p = g.pair0 + blockIdx.y;
-  const long long ch = p / g.pairs_per_ch;
-  const long long k = p % g.pairs_per_ch;
-  const int c0 = blockIdx.x * C::kW;
-  const IO* xc = x + ch * g.n_in;
-  const long long s0 = 2 * k * g.hop - g.left;
-  const long long s1 = s0 + g.hop;
 
-  if constexpr (A::kArith) F::build_table(tab, w1, tid, C::kThreads);
-  Cx<T> v[F::kE];
-  if constexpr (A::kGather) {
-#pragma unroll
-    for (int m = 0; m < F::kE; ++m) {
-      const long long n = (long long)F::template pos<0>(t, m) * S::kN2 + c0 + w;
-      const long long i0 = s0 + n, i1 = s1 + n;
-      v[m].re = (i0 >= 0 && i0 < g.n_in) ? load_sample<T>(xc[i0]) : T(0);
-      v[m].im = (i1 >= 0 && i1 < g.n_in) ? load_sample<T>(xc[i1]) : T(0);
+  if constexpr (P::kDepth == 0) {
+    const typename P::Item c(g, blockIdx.y, blockIdx.x);
+    if constexpr (A::kArith) F::build_table(tab, w1, tid, C::kThreads);
+    Cx<T> v[F::kE];
+    if constexpr (A::kGather) {
+      P::load(v, x, g, c, t, w);
+    } else {
+      opaque_zeros(v, x);
     }
+    cols_forward_store<T, S, A::kArith, A::kStrided>(
+        v, s + w, tw, scratch + (size_t)c.pl * S::kB, tw4, c.c0, t, w);
   } else {
-    // nvcc cannot fold x == nullptr (the wrapper passes the signal, which
-    // is never read), and the registers get distinct multiples of it, so
-    // no butterfly below sees a constant or two equal inputs.
-    const T zero = static_cast<T>(x == nullptr);
+    uint32_t* ring = reinterpret_cast<uint32_t*>(smem_raw + C::kSmem);
+    const long long step = gridDim.x;
+    // The first kDepth - 1 items' copies go out before the tables are
+    // built, which happens once a CTA.
+    if constexpr (A::kGather) {
 #pragma unroll
-    for (int m = 0; m < F::kE; ++m) {
-      v[m].re = zero * static_cast<T>(2 * m + 1);
-      v[m].im = zero * static_cast<T>(2 * m + 2);
+      for (int d = 0; d < P::kDepth - 1; ++d) {
+        const long long it = blockIdx.x + d * step;
+        if (it < items) P::gather(x, ring + d * P::kStageWords, g, it, t, w, tid);
+        cp_async_commit();
+      }
+    }
+    if constexpr (A::kArith) F::build_table(tab, w1, tid, C::kThreads);
+    int stage = 0;
+    for (long long it = blockIdx.x; it < items; it += step) {
+      const typename P::Item c(g, it);
+      Cx<T> v[F::kE];
+      if constexpr (A::kGather) {
+        // Refill the stage read one item ago, then wait for this item's.
+        const long long ahead = it + (P::kDepth - 1) * step;
+        const int fill = stage == 0 ? P::kDepth - 1 : stage - 1;
+        if (ahead < items)
+          P::gather(x, ring + fill * P::kStageWords, g, ahead, t, w, tid);
+        cp_async_commit();
+        cp_async_wait<P::kDepth - 1>();
+        P::read(v, ring + stage * P::kStageWords, x, g, c, w, tid);
+        stage = stage + 1 == P::kDepth ? 0 : stage + 1;
+      } else {
+        opaque_zeros(v, x);
+      }
+      cols_forward_store<T, S, A::kArith, A::kStrided>(
+          v, s + w, tw, scratch + (size_t)c.pl * S::kB, tw4, c.c0, t, w);
     }
   }
-  cols_forward_store<T, S, A::kArith, A::kStrided>(
-      v, tab + F::kTableElems + w, F::kGlobalTw ? w1 : tab,
-      scratch + (size_t)blockIdx.y * S::kB, tw4, c0, t, w);
 }
 
 // Pass 3: inverse column FFTs, valid-position write-out, fused peak.
@@ -187,6 +372,35 @@ cols_inverse(const Cx<T>* __restrict__ scratch, IO* __restrict__ y,
     atomicMax(peak_bits, __float_as_uint(pk));
 }
 
+// CTAs of one pass-1 instantiation the card holds at once (CTAs an SM
+// holds times SMs); asked once a process, after its shared-memory limit is
+// raised.
+template <typename T, typename IO, class S, class A>
+int pass1_resident() {
+  static const int n = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cols_forward<T, IO, S, A>, Cols<T, S>::kThreads,
+        Pass1<T, IO, S>::kSmem);
+    return (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  }();
+  return n;
+}
+
+// Pass 1's grid for a chunk of np pairs: without a ring one CTA an item
+// (tiles x pairs), else the resident CTAs, or one an item where there are
+// fewer items.
+template <typename T, typename IO, class S, class A>
+dim3 pass1_grid(long long np) {
+  using P = Pass1<T, IO, S>;
+  if (P::kDepth == 0) return dim3(P::kTiles, (unsigned)np);
+  const long long items = np * P::kTiles;
+  const long long res = pass1_resident<T, IO, S, A>();
+  return dim3((unsigned)(items < res ? items : res));
+}
+
 // The three passes over `total` pairs, chunk_pairs at a time through the
 // scratch.
 template <typename T, typename IO, class S, class A = Shipped>
@@ -196,7 +410,8 @@ int run_split(const IO* x, IO* y, unsigned int* pk, const Cx<T>* H,
               cudaStream_t stream) {
   using C = Cols<T, S>;
   using RW = Rows<T, S>;
-  cudaError_t err = smem_limit(cols_forward<T, IO, S, A>, C::kSmem);
+  using P = Pass1<T, IO, S>;
+  cudaError_t err = smem_limit(cols_forward<T, IO, S, A>, P::kSmem);
   if (err == cudaSuccess)
     err = smem_limit(rows_multiply<T, S, A::kRows>, RW::kSmem);
   if (err == cudaSuccess) err = smem_limit(cols_inverse<T, IO, S, A>, C::kSmem);
@@ -206,8 +421,9 @@ int run_split(const IO* x, IO* y, unsigned int* pk, const Cx<T>* H,
     g.pair0 = p0;
     const dim3 grid_cols(S::kN2 / C::kW, (unsigned)np);
     const dim3 grid_rows(S::kN1 / RW::kR, (unsigned)np);
-    cols_forward<T, IO, S, A><<<grid_cols, C::kThreads, C::kSmem, stream>>>(
-        x, sc, tw4, w1, g);
+    cols_forward<T, IO, S, A>
+        <<<pass1_grid<T, IO, S, A>(np), C::kThreads, P::kSmem, stream>>>(
+            x, sc, tw4, w1, g, np * P::kTiles);
     rows_multiply<T, S, A::kRows><<<grid_rows, RW::kThreads, RW::kSmem, stream>>>(
         sc, H, w2);
     cols_inverse<T, IO, S, A><<<grid_cols, C::kThreads, C::kSmem, stream>>>(
@@ -216,6 +432,22 @@ int run_split(const IO* x, IO* y, unsigned int* pk, const Cx<T>* H,
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
+}
+
+// Pass 1 at one split: occupancy()'s five numbers, then the ring's depth
+// (0: none), the column tiles a pair and the resident CTAs (with a ring,
+// the grid of a chunk with at least that many items).
+template <typename T, typename IO, class S>
+int pass1_occupancy(int* out) {
+  using P = Pass1<T, IO, S>;
+  cudaError_t err = smem_limit(cols_forward<T, IO, S, Shipped>, P::kSmem);
+  if (err == cudaSuccess)
+    err = occupancy(cols_forward<T, IO, S, Shipped>, Cols<T, S>::kThreads,
+                    P::kSmem, out);
+  out[5] = P::kDepth;
+  out[6] = P::kTiles;
+  out[7] = pass1_resident<T, IO, S, Shipped>();
+  return err;
 }
 
 }  // namespace

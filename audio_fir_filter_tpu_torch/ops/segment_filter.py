@@ -81,6 +81,43 @@ def call_pairs(channels: int, out_len: int, hop: int) -> int:
     return channels * ((-(-out_len // hop) + 1) // 2)
 
 
+def pass1_tiles(b: int) -> int:
+    """Column tiles of one pair in the column passes: N2 / W, W columns a
+    tile (``fourstep.cuh`` ``Split::kTc``: 8, fewer above 512-point columns
+    so that a CTA has at most 512 threads, 1024 at 2^13)."""
+    l1, l2 = split(b)
+    return (1 << l2) // min(max(4096 >> l1, 1), 8, 1 << l2)
+
+
+_PASS1_KEYS = ("ctas_per_sm", "threads", "smem_bytes", "registers",
+               "local_bytes", "ring_depth", "tiles", "resident_ctas")
+_PASS1_MODES = {"f32": 0, "f64": 1, "i16": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def pass1_occupancy(mode: str, b: int, device_index: int = 0) -> dict:
+    """Pass 1 (``cols_forward``) of ``mode`` at block size ``b`` on card
+    ``device_index``: CTAs an SM holds, threads per CTA, dynamic shared
+    bytes, registers and local-memory (stack and spill) bytes per thread,
+    its ring's depth (0: no ring, one CTA an item), the column tiles a
+    pair and the CTAs the card holds at once (with a ring, the grid of a
+    chunk with at least as many items). Asked of the built kernel once
+    per (mode, B, card); needs a card."""
+    import ctypes
+
+    from . import _build
+
+    fn = _build.library("segment_filter").lowcut_segment_pass1_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(_PASS1_KEYS))()
+    with torch.cuda.device(device_index):
+        rc = fn(_PASS1_MODES[mode], *split(b), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"pass 1 occupancy query failed: CUDA error {rc}")
+    return dict(zip(_PASS1_KEYS, out))
+
+
 def entry_chunks(pairs: int, chunk: int) -> int:
     """Scratch chunks the C entry point's loop walks for ``pairs`` pairs,
     ``chunk`` (:func:`scratch_pairs`) at a time."""
@@ -248,8 +285,11 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     ``extra`` before the stream: the shipped kernel, or the ablation probe
     (``csrc/probe_segment.cu``, which adds a variant id). ``prep``, the
     caller's open ``segment.prepare`` span, gets the scratch bytes and ends
-    here; the entry point is called in the span ``segment.launch``.
-    Returns the kernels it issued; raises if the launch failed."""
+    here; the entry point is called in the span ``segment.launch``, which
+    gets the chunks, the kernels, pass 1's grid (``pass1_ctas``, of the
+    first chunk) and the (pair, column tile) items its CTAs walk
+    (``pass1_items``, all chunks). Returns the kernels it launched; raises
+    if the launch failed."""
     from . import _build
 
     dev = x.device
@@ -270,7 +310,15 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     prep.end()
     with spans.span("segment.launch") as s, torch.cuda.device(dev):
         if s:
-            s.set(chunks=chunks, kernels=KERNELS_PER_CHUNK * chunks)
+            tiles = pass1_tiles(b)
+            occ = pass1_occupancy(entry.rsplit("_", 1)[1], b, dev.index or 0)
+            # pass1_grid: one CTA an item without a ring, else at most the
+            # resident CTAs.
+            ctas = chunk * tiles
+            if occ["ring_depth"]:
+                ctas = min(ctas, occ["resident_ctas"])
+            s.set(chunks=chunks, kernels=KERNELS_PER_CHUNK * chunks,
+                  pass1_ctas=ctas, pass1_items=pairs * tiles)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), peak.data_ptr(), H.data_ptr(),
                 tw4.data_ptr(), w1.data_ptr(), w2.data_ptr(),

@@ -19,7 +19,9 @@ result line):
    passes that ran on the card, as far as the trace kept them, may not
    exceed it), and median device times
    (CUDA events around each call queued behind a sleep kernel,
-   ``experiments/_probe.event_ms``);
+   ``experiments/_probe.event_ms``); pass 1's occupancy at B = 2^18 in
+   each mode (ring depth, CTAs per SM, registers), which must have no
+   local (spill) bytes;
 4. a float64 direct-convolution oracle on excerpts (head, a block seam,
    tail) of the phase-3 kernel outputs; then kernel vs plain version at
    small edge shapes (B 256-2048, 1-3 channels, halo-extended input), and
@@ -511,6 +513,17 @@ def phase_kernels() -> dict:
               f"peak {peak_k:.6f}; kernel {ms:.3f}/{ms2:.3f} ms, "
               f"plain (cuFFT) {plain_ms:.3f} ms, "
               f"{2 * n / (min(ms, ms2) * 1e-3) / 1e9:.3f} Gsamples/s")
+        occ = sf.pass1_occupancy(mode, 1 << 18)
+        print(f"pass 1 {mode} at B = 2^18: ring depth {occ['ring_depth']}, "
+              f"{occ['ctas_per_sm']} CTAs per SM ({occ['resident_ctas']} "
+              f"resident), {occ['threads']} threads, {occ['smem_bytes']} "
+              f"shared bytes, {occ['registers']} registers, "
+              f"{occ['local_bytes']} local bytes")
+        # Pass 1's registers, the persistent loop's state beside the FFT's
+        # included, must stay out of local memory.
+        check(occ["local_bytes"] == 0 and occ["ctas_per_sm"] >= 1,
+              f"pass 1 {mode}: {occ['local_bytes']} local bytes per thread, "
+              f"{occ['ctas_per_sm']} CTAs per SM")
 
         # Float64 oracle on head, a pair seam and tail excerpts.
         xin = x.astype(np.float64) / (32768.0 if i16 else 1.0)

@@ -150,6 +150,9 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     entry = _FakeEntry()
     _fake_card(monkeypatch, entry)
     monkeypatch.setattr(sf, "_SCRATCH_BYTES", 4 * 1024 * 8)    # 4 pairs a chunk
+    asked = []
+    monkeypatch.setattr(sf, "pass1_occupancy", lambda *a: (
+        asked.append(a), {"resident_ctas": 12, "ring_depth": 2})[1])
     plan = _small_plan("fast")
     x = torch.zeros((2, 50_000))
     before = dict(sf.launches), dict(sf.kernels)
@@ -173,7 +176,12 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     assert prep["call"] == launch["call"] == outer["id"]
     assert prep["t1_ns"] <= launch["t0_ns"]
     assert prep["info"] == {"scratch_bytes": args[-2] * plan.block_size * 8}
-    assert launch["info"] == {"chunks": chunks, "kernels": 3 * chunks}
+    # B = 1024 is 32 x 32: 4 tiles of 8 columns a pair; a ring's grid is
+    # the first chunk's 16 items cut to the 12 resident CTAs.
+    assert sf.pass1_tiles(plan.block_size) == 4
+    assert asked == [("f32", plan.block_size, 0)]
+    assert launch["info"] == {"chunks": chunks, "kernels": 3 * chunks,
+                              "pass1_ctas": 12, "pass1_items": 4 * pairs}
 
 
 def test_a_failed_launch_raises_and_counts_nothing(monkeypatch):
