@@ -23,6 +23,7 @@ no counterpart here, so one qualifier serves every mode.
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -40,9 +41,12 @@ HIGH = "high"
 # (one a call on the card), and ``kernels``, the kernels those calls
 # issued, KERNELS_PER_CHUNK for each scratch chunk of the entry's loop
 # (``run_split`` in ``csrc/segment_filter.cuh``), reckoned on the host
-# from the same chunking (:func:`entry_chunks` of :func:`scratch_pairs`).
+# from the same chunking (:func:`entry_chunks` of :func:`scratch_pairs`);
+# ``splits``, the same calls by ``"<mode> <log2 N1>x<log2 N2>"``, the
+# four-step split (:func:`split`) each ran at.
 launches = {"f32": 0, "f64": 0, "i16": 0}
 kernels = {"f32": 0, "f64": 0, "i16": 0}
+splits: collections.Counter = collections.Counter()
 
 # Kernels the C entry point issues per scratch chunk: its three passes.
 KERNELS_PER_CHUNK = 3
@@ -275,6 +279,8 @@ def _launch(x, plan, left, out_len, i16_io):
         kernels[mode] += run_entry("segment_filter", f"lowcut_segment_filter_{mode}",
                                    x, y, peak, plan, left, out_len, prep=prep)
     launches[mode] += 1
+    l1, l2 = split(plan.block_size)
+    splits[f"{mode} {l1}x{l2}"] += 1
     return y, peak
 
 
@@ -287,9 +293,11 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     caller's open ``segment.prepare`` span, gets the scratch bytes and ends
     here; the entry point is called in the span ``segment.launch``, which
     gets the chunks, the kernels, pass 1's grid (``pass1_ctas``, of the
-    first chunk) and the (pair, column tile) items its CTAs walk
-    (``pass1_items``, all chunks). Returns the kernels it launched; raises
-    if the launch failed."""
+    first chunk), the (pair, column tile) items its CTAs walk
+    (``pass1_items``, all chunks), the split (``log_n1``, ``log_n2``), the
+    pairs the call filters (``pairs``) and a chunk holds (``chunk_pairs``)
+    and pass 1's ring depth (``pass1_ring``, 0 without a ring). Returns the
+    kernels it launched; raises if the launch failed."""
     from . import _build
 
     dev = x.device
@@ -318,7 +326,9 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
             if occ["ring_depth"]:
                 ctas = min(ctas, occ["resident_ctas"])
             s.set(chunks=chunks, kernels=KERNELS_PER_CHUNK * chunks,
-                  pass1_ctas=ctas, pass1_items=pairs * tiles)
+                  pass1_ctas=ctas, pass1_items=pairs * tiles, log_n1=l1,
+                  log_n2=l2, pairs=pairs, chunk_pairs=chunk,
+                  pass1_ring=occ["ring_depth"])
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), peak.data_ptr(), H.data_ptr(),
                 tw4.data_ptr(), w1.data_ptr(), w2.data_ptr(),

@@ -20,8 +20,9 @@ result line):
    exceed it), and median device times
    (CUDA events around each call queued behind a sleep kernel,
    ``experiments/_probe.event_ms``); pass 1's occupancy at B = 2^18 in
-   each mode (ring depth, CTAs per SM, registers), which must have no
-   local (spill) bytes;
+   each mode, and in f64 at B = 2^19 (the 1024 x 512 split of M = 76,800)
+   (ring depth, CTAs per SM, registers), which must have no local (stack
+   or spill) bytes;
 4. a float64 direct-convolution oracle on excerpts (head, a block seam,
    tail) of the phase-3 kernel outputs; then kernel vs plain version at
    small edge shapes (B 256-2048, 1-3 channels, halo-extended input), and
@@ -373,6 +374,7 @@ def _zero_counts() -> None:
                    *(m.launches for m in _probe_modules())):
         for k in counts:
             counts[k] = 0
+    sf.splits.clear()
 
 
 def _counts() -> dict:
@@ -513,17 +515,9 @@ def phase_kernels() -> dict:
               f"peak {peak_k:.6f}; kernel {ms:.3f}/{ms2:.3f} ms, "
               f"plain (cuFFT) {plain_ms:.3f} ms, "
               f"{2 * n / (min(ms, ms2) * 1e-3) / 1e9:.3f} Gsamples/s")
-        occ = sf.pass1_occupancy(mode, 1 << 18)
-        print(f"pass 1 {mode} at B = 2^18: ring depth {occ['ring_depth']}, "
-              f"{occ['ctas_per_sm']} CTAs per SM ({occ['resident_ctas']} "
-              f"resident), {occ['threads']} threads, {occ['smem_bytes']} "
-              f"shared bytes, {occ['registers']} registers, "
-              f"{occ['local_bytes']} local bytes")
-        # Pass 1's registers, the persistent loop's state beside the FFT's
-        # included, must stay out of local memory.
-        check(occ["local_bytes"] == 0 and occ["ctas_per_sm"] >= 1,
-              f"pass 1 {mode}: {occ['local_bytes']} local bytes per thread, "
-              f"{occ['ctas_per_sm']} CTAs per SM")
+        _pass1_row(sf, mode, 18)
+        if mode == "f64":
+            _pass1_row(sf, mode, 19)
 
         # Float64 oracle on head, a pair seam and tail excerpts.
         xin = x.astype(np.float64) / (32768.0 if i16 else 1.0)
@@ -548,6 +542,23 @@ def phase_kernels() -> dict:
                          "plain_ms": plain_ms, **roofline.bound_keys(w),
                          "library_ms": lib_ms}
     return results
+
+
+def _pass1_row(sf, mode: str, log_b: int) -> None:
+    """Print pass 1's occupancy of ``mode`` at B = 2^``log_b``; fail on
+    local bytes (a stack frame or a spill) or no CTA an SM."""
+    occ = sf.pass1_occupancy(mode, 1 << log_b)
+    l1, l2 = sf.split(1 << log_b)
+    print(f"pass 1 {mode} at B = 2^{log_b} ({1 << l1} x {1 << l2}): ring depth "
+          f"{occ['ring_depth']}, {occ['ctas_per_sm']} CTAs per SM "
+          f"({occ['resident_ctas']} resident), {occ['threads']} threads, "
+          f"{occ['smem_bytes']} shared bytes, {occ['registers']} registers, "
+          f"{occ['local_bytes']} local bytes")
+    # Pass 1's registers, the persistent loop's state beside the FFT's
+    # included, must stay out of local memory.
+    check(occ["local_bytes"] == 0 and occ["ctas_per_sm"] >= 1,
+          f"pass 1 {mode} at 2^{log_b}: {occ['local_bytes']} local bytes per "
+          f"thread, {occ['ctas_per_sm']} CTAs per SM")
 
 
 def phase_edge_shapes() -> None:
@@ -883,6 +894,7 @@ def phase_main_path(card: str, files: dict) -> dict:
     path's launch counts and, per file, (output, wall s, launches)."""
     from audio_fir_filter_tpu_torch import audio
     from audio_fir_filter_tpu_torch.models import LowCut
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
     from audio_fir_filter_tpu_torch.pipeline.stream import default_segment_len
 
     single = {}
@@ -892,7 +904,11 @@ def phase_main_path(card: str, files: dict) -> dict:
         m, wall, made = _timed_cli([str(files[tag]), str(out)])
         single[tag] = (out, wall, made, m)
     counts = _counts()
-    print(f"main-path launches: {counts}")
+    print(f"main-path launches: {counts}; segment kernel calls by split: "
+          f"{dict(sf.splits)}")
+    for mode, n in sf.launches.items():
+        by_split = sum(v for k, v in sf.splits.items() if k.split()[0] == mode)
+        check(by_split == n, f"{mode}: {n} launches, {by_split} by split")
     for k, v in counts.items():
         if k.startswith("segment_filter_"):
             check(v > 0, f"kernel {k} never launched on the main path")

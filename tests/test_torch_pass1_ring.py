@@ -14,7 +14,8 @@ and its program order, in every mode (f64, f32, i16) and at every split
   the CTAs an SM aims for (228 KB, 1 KB reserved a CTA);
 - the walk: CTA b of G takes items b, b + G, ... (G the resident CTAs
   with a ring, else one CTA an item), each item of every chunk once, on
-  both cells' geometries (their ragged last chunks too);
+  the cells' geometries (their ragged last chunks too), long96k's
+  1024 x 512 split among them;
 - the ring's order: the prologue's gathers, then in each item a refill of
   the stage read one item earlier, a commit, a wait that leaves at most
   depth - 1 groups pending, a read of this item's stage; a stage is
@@ -122,6 +123,26 @@ def test_the_ring_depths_at_the_cells_split_and_the_largest_sides():
     assert Pass1("f64", 8, 8).depth == 0
 
 
+# The f64 splits of the cells: hires96k's 512 x 512 (B = 2^18) and
+# long96k's 1024 x 512 (B = 2^19, M = 76,800): column tile, threads, ring
+# depth, shared bytes and tiles a pair.
+CELL_SPLITS = {
+    "hires96k-9x9": ((9, 9), 8, 512, 2, 139_248, 64),
+    "long96k-10x9": ((10, 9), 4, 512, 2, 147_440, 128),
+}
+
+
+@pytest.mark.parametrize("name", CELL_SPLITS)
+def test_the_f64_ring_at_each_cells_split(name):
+    (l1, l2), w, threads, depth, smem, tiles = CELL_SPLITS[name]
+    p = Pass1("f64", l1, l2)
+    assert (p.W, p.threads, p.depth, p.smem, p.tiles) == (w, threads, depth, smem, tiles)
+    # One CTA an SM: its tables, tile and two 32 KB stages fit a CTA.
+    assert p.min_blocks == 1 and p.stage_bytes == 32768
+    assert p.smem <= CTA_SMEM_MAX and p.smem + CTA_RESERVED <= SM_SMEM
+    assert sf.pass1_tiles(1 << (l1 + l2)) == tiles
+
+
 def _walk(items, grid):
     return [list(range(b, items, grid)) for b in range(grid)]
 
@@ -132,23 +153,27 @@ def _cell_chunks(channels, frames, m, b, element_size):
     return [min(chunk, pairs - p0) for p0 in range(0, pairs, chunk)]
 
 
-# Both cells: 1 h stereo at 96 kHz (M = 38,400, f64) and at 44.1 kHz
-# (M = 17,640, f32), B = 2^18; an i16 call of the CD hour; and small calls
-# with fewer items than resident CTAs.
+# The cells: 1 h stereo at 96 kHz (M = 38,400, f64) and at 44.1 kHz
+# (M = 17,640, f32), B = 2^18; 1 h at 96 kHz with M = 76,800, f64 at
+# B = 2^19 (32-pair chunks, 1024 x 512); an i16 call of the CD hour; and
+# small calls with fewer items than resident CTAs.
 GEOMETRIES = {
-    "hires96k": ("f64", _cell_chunks(2, 345_600_000, 38_400, 1 << 18, 16)),
-    "cd44k": ("f32", _cell_chunks(2, 158_760_000, 17_640, 1 << 18, 8)),
-    "cd44k-i16": ("i16", _cell_chunks(2, 158_760_000, 17_640, 1 << 18, 8)),
-    "one-pair": ("f64", [1]),
-    "three-pairs": ("f32", [3]),
+    "hires96k": ("f64", (9, 9), _cell_chunks(2, 345_600_000, 38_400, 1 << 18, 16)),
+    "cd44k": ("f32", (9, 9), _cell_chunks(2, 158_760_000, 17_640, 1 << 18, 8)),
+    "cd44k-i16": ("i16", (9, 9), _cell_chunks(2, 158_760_000, 17_640, 1 << 18, 8)),
+    "one-pair": ("f64", (9, 9), [1]),
+    "three-pairs": ("f32", (9, 9), [3]),
+    "long96k": ("f64", (10, 9), _cell_chunks(2, 345_600_000, 76_800, 1 << 19, 16)),
 }
 
 
 @pytest.mark.parametrize("name", GEOMETRIES)
 def test_the_walk_takes_every_item_of_every_chunk_once(name):
-    mode, chunks = GEOMETRIES[name]
-    p = Pass1(mode, 9, 9)
-    if name in ("hires96k", "cd44k"):
+    mode, split, chunks = GEOMETRIES[name]
+    p = Pass1(mode, *split)
+    if name == "long96k":
+        assert len(chunks) == 25 and chunks[0] == 32 and chunks[-1] == 6
+    if name in ("hires96k", "cd44k", "long96k"):
         assert len(chunks) > 1 and chunks[-1] < chunks[0]   # ragged last chunk
     for np_ in chunks:
         items = np_ * p.tiles

@@ -4,6 +4,7 @@ profiler, the bounded store, the spans of the segment wrapper and of the
 pipeline's stages, and the kernels a segment call issues (shape
 arithmetic, no card)."""
 
+import collections
 import contextlib
 import json
 import sys
@@ -155,7 +156,7 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
         asked.append(a), {"resident_ctas": 12, "ring_depth": 2})[1])
     plan = _small_plan("fast")
     x = torch.zeros((2, 50_000))
-    before = dict(sf.launches), dict(sf.kernels)
+    before = dict(sf.launches), dict(sf.kernels), dict(sf.splits)
     pairs = sf.call_pairs(2, 50_000, plan.hop)
     chunks = sf.entry_chunks(pairs, sf.scratch_pairs(pairs, plan.block_size, 8))
     with spans.recording():
@@ -169,6 +170,7 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     assert sf.kernels["f32"] == before[1]["f32"] + 3 * chunks
     assert {k: v for k, v in sf.kernels.items() if k != "f32"} == \
         {k: v for k, v in before[1].items() if k != "f32"}
+    assert sf.splits - collections.Counter(before[2]) == {"f32 5x5": 1}
     prep, launch, outer = spans.spans()
     assert (prep["name"], launch["name"], outer["name"]) == \
         ("segment.prepare", "segment.launch", "filter")
@@ -181,15 +183,49 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     assert sf.pass1_tiles(plan.block_size) == 4
     assert asked == [("f32", plan.block_size, 0)]
     assert launch["info"] == {"chunks": chunks, "kernels": 3 * chunks,
-                              "pass1_ctas": 12, "pass1_items": 4 * pairs}
+                              "pass1_ctas": 12, "pass1_items": 4 * pairs,
+                              "log_n1": 5, "log_n2": 5, "pairs": pairs,
+                              "chunk_pairs": 4, "pass1_ring": 2}
+
+
+@pytest.mark.parametrize("freq,slope,split,pairs,chunk,ring", [
+    (15.0, 10.0, (9, 9), 6, 6, 2),        # hires96k: M = 38,400, B = 2^18
+    (10.0, 5.0, (10, 9), 4, 4, 2),        # long96k: M = 76,800, B = 2^19
+])
+def test_the_launch_span_names_the_split_it_ran(monkeypatch, freq, slope, split,
+                                                pairs, chunk, ring):
+    # A CPU-built plan of a 96 kHz deployment, launched on a stand-in card:
+    # the span gives the split, the pairs and the chunk, and the ring
+    # depth pass1_occupancy reports; the counter keys the call by split.
+    entry = _FakeEntry()
+    _fake_card(monkeypatch, entry)
+    monkeypatch.setattr(sf, "pass1_occupancy", lambda *a: {
+        "resident_ctas": 132, "ring_depth": ring})
+    plan = LowCut(freq=freq, slope=slope).plan(96000.0, precision="high",
+                                               device="cpu")
+    assert sf.split(plan.block_size) == split
+    x = torch.zeros((2, 1_000_000))
+    before = collections.Counter(sf.splits)
+    with spans.recording():
+        sf._launch(x, plan, plan.mo2, x.shape[1], False)
+    key = f"f64 {split[0]}x{split[1]}"
+    assert sf.splits - before == {key: 1}
+    (launch,) = [s for s in spans.spans() if s["name"] == "segment.launch"]
+    info = launch["info"]
+    assert (info["log_n1"], info["log_n2"]) == split
+    assert (info["pairs"], info["chunk_pairs"], info["pass1_ring"]) == \
+        (pairs, chunk, ring)
+    assert info["pairs"] == sf.call_pairs(2, x.shape[1], plan.hop)
+    assert info["pass1_items"] == pairs * sf.pass1_tiles(plan.block_size)
+    assert entry.calls[0][1][-2] == chunk
 
 
 def test_a_failed_launch_raises_and_counts_nothing(monkeypatch):
     _fake_card(monkeypatch, _FakeEntry(rc=700))
-    before = dict(sf.launches), dict(sf.kernels)
+    before = dict(sf.launches), dict(sf.kernels), dict(sf.splits)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         sf._launch(torch.zeros((2, 5000)), _small_plan(), 0, 4000, False)
-    assert (dict(sf.launches), dict(sf.kernels)) == before
+    assert (dict(sf.launches), dict(sf.kernels), dict(sf.splits)) == before
 
 
 def _wav(path, seed=3):
