@@ -407,19 +407,96 @@ int with_split(int log_n1, int log_n2, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-// The column passes take two switches for the decomposition probes
-// (experiments/, csrc/probe_phases.cu); the defaults are the shipped code:
+// The four-step twiddle of the column passes: scratch row p of column c
+// takes w_B^(k1 * c), k1 = bitrev(p) over LOG1 bits. Where the full
+// [N1, N2] table (tw4) would hold more than 4 MiB -- f64 from B = 2^19,
+// f32 from 2^20 -- each column pass reads 8 MiB or more of it a pair, as
+// many bytes as the pair's scratch. There the twiddle is the product of
+// two factor tables, packed one after the other in tw4's place. The
+// column passes' registers hold rows pos<kLast>(t, m) = 8 t + m, so
+// k1 = brev(m) << kH | bt, with kH = LOG1 - 3 and bt = t bit-reversed
+// over kH bits:
+//   lo[bt, c]      = w_B^(bt * c),               2^kH rows of N2,
+//   hi[brev(m), c] = w_B^(brev(m) * 2^kH * c),   8 rows of N2,
+// each rounded once from float64 on the host; the product is within
+// about 1.5 ulp of the exact twiddle. A thread loads its lo entry once,
+// and its 8 hi entries are those of every thread of its column. At
+// (10, 9) in f64 that is 1 MiB + 64 KiB in place of 8 MiB, and the two
+// column passes take 15.17 us a pair in place of 15.76 (a unit held in
+// registers in place of every twiddle, probe_segment.cu no_tw4: 14.4).
+// Splitting k1 at ceil(LOG1 / 2) instead (two 256 KiB tables, every
+// register its own pair of entries) gave 15.43 (PERF.md). At and below
+// 4 MiB the passes read tw4 as before and compile to the same code.
+// ops/segment_filter.kernel_tables lays the tables out by the same rule;
+// segment_filter.cu's lowcut_segment_twiddle_layout reports it.
+template <typename T, class S>
+struct Twiddle {
+  static constexpr size_t kFullBytes = sizeof(Cx<T>) * (size_t)S::kB;
+  static constexpr bool kFactored = kFullBytes > ((size_t)4 << 20);
+  // The factor tables' rows (0 where the table is read whole, which every
+  // split below 2^3-point columns is).
+  static constexpr int kH = kFactored ? S::kLog1 - 3 : 0;
+  static constexpr int kLoRows = kFactored ? 1 << kH : 0;
+  static constexpr int kHiRows = kFactored ? 8 : 0;
+  static constexpr size_t kBytes =
+      kFactored ? sizeof(Cx<T>) * (size_t)(kLoRows + kHiRows) * S::kN2
+                : kFullBytes;
+};
+
+// Thread t's factored twiddles at column c (kOn: the passes multiply by
+// factored twiddles; otherwise empty, and nothing is read).
+template <typename T, class S, bool kOn>
+struct ColTwiddle {
+  __device__ __forceinline__ ColTwiddle(const Cx<T>*, int, int) {}
+};
+template <typename T, class S>
+struct ColTwiddle<T, S, true> {
+  using TW = Twiddle<T, S>;
+  using F = Fft<T, S::kLog1>;
+  static_assert(F::lrad(F::kStages - 1) == 3 && F::ld(F::kStages - 1) == 0 &&
+                    F::kNT == TW::kLoRows,
+                "the last stage's rows are 8 t + m");
+  const Cx<T>* hi;  // register 0's hi factor (brev(0) = 0) at column c
+  Cx<T> lo;
+  __device__ __forceinline__ ColTwiddle(const Cx<T>* __restrict__ tab, int t,
+                                        int c) {
+    const int bt = (int)(__brev((unsigned)t) >> (32 - TW::kH));
+    lo = tab[(size_t)bt * S::kN2 + c];
+    hi = tab + (size_t)TW::kLoRows * S::kN2 + c;
+  }
+  // Register m's twiddle.
+  __device__ __forceinline__ Cx<T> operator()(int m) const {
+    return cmul(hi[(size_t)brev(m, 3) * S::kN2], lo);
+  }
+};
+
+// The column passes take three switches for the decomposition probes
+// (experiments/, csrc/probe_phases.cu, csrc/probe_segment.cu); the
+// defaults are the shipped code:
 //   kArith   = false: no FFT and no twiddle, a pure gather/scatter;
 //   kStrided = false: the tile goes to one contiguous run of the scratch
 //              (tc * N1 values at c0 * N1, row-major in the tile) instead
-//              of column-strided.
+//              of column-strided;
+//   kTw4     = false: the four-step twiddle multiply stays, but by
+//              opaque_unit, a value in registers, so no twiddle table is
+//              read.
+
+// The no_tw4 probe's twiddle: (1, 0) at run time (the table pointer is
+// never null), a unit nvcc cannot fold, so the complex multiply stays.
+template <typename T>
+__device__ __forceinline__ Cx<T> opaque_unit(const void* p) {
+  const T z = static_cast<T>(p == nullptr);
+  return {T(1) - z, z};
+}
 
 // Pass 1, after the gather: v holds column c0 + w of one pair at rows
 // pos<0>(t, m) in natural order; s is the column's exchange tile (stride
 // kW) and tw the twiddles of a length-N1 FFT. Column FFT, then the pair's
 // scratch gets it times the four-step twiddle (scratch row p holds
-// k1 = bitrev(p)), straight from the registers.
-template <typename T, class S, bool kArith = true, bool kStrided = true>
+// k1 = bitrev(p); tw4 as Twiddle<T, S> lays it out), straight from the
+// registers.
+template <typename T, class S, bool kArith = true, bool kStrided = true,
+          bool kTw4 = true>
 __device__ __forceinline__ void cols_forward_store(
     Cx<T> (&v)[Fft<T, S::kLog1>::kE], Cx<T>* s, const Cx<T>* tw,
     Cx<T>* __restrict__ out, const Cx<T>* __restrict__ tw4, int c0, int t,
@@ -427,17 +504,23 @@ __device__ __forceinline__ void cols_forward_store(
   using C = Cols<T, S>;
   using F = typename C::F;
   constexpr int kLast = kArith ? F::kStages - 1 : 0;
+  constexpr bool kFactored = kArith && kTw4 && Twiddle<T, S>::kFactored;
   if constexpr (kArith) {
     __syncthreads();  // the twiddle tables
     F::template forward<C::kW, false>(v, s, tw, t);
   }
+  [[maybe_unused]] const ColTwiddle<T, S, kFactored> ft(tw4, t, c0 + w);
 #pragma unroll
   for (int m = 0; m < F::kE; ++m) {
     const int p = F::template pos<kLast>(t, m);
     const size_t idx = (size_t)p * S::kN2 + c0 + w;
     const size_t at = kStrided ? idx : (size_t)c0 * S::kN1 + p * C::kW + w;
-    if constexpr (kArith) {
+    if constexpr (kFactored) {
+      out[at] = cmul(v[m], ft(m));
+    } else if constexpr (kArith && kTw4) {
       out[at] = cmul(v[m], tw4[idx]);
+    } else if constexpr (kArith) {
+      out[at] = cmul(v[m], opaque_unit<T>(tw4));
     } else {
       out[at] = v[m];
     }
@@ -491,9 +574,11 @@ rows_multiply(Cx<T>* __restrict__ scratch, const Cx<T>* __restrict__ H,
 }
 
 // Pass 3, before the scatter: v gets column c0 + w of the pair's scratch
-// blk times the conjugate twiddle, then the inverse column FFT; it leaves
+// blk times the conjugate four-step twiddle (tw4 as in
+// cols_forward_store), then the inverse column FFT; it leaves
 // rows pos<0>(t, m) in natural order, unscaled.
-template <typename T, class S, bool kArith = true, bool kStrided = true>
+template <typename T, class S, bool kArith = true, bool kStrided = true,
+          bool kTw4 = true>
 __device__ __forceinline__ void cols_inverse_load(
     Cx<T> (&v)[Fft<T, S::kLog1>::kE], Cx<T>* s, const Cx<T>* tw,
     const Cx<T>* __restrict__ blk, const Cx<T>* __restrict__ tw4, int c0,
@@ -501,13 +586,19 @@ __device__ __forceinline__ void cols_inverse_load(
   using C = Cols<T, S>;
   using F = typename C::F;
   constexpr int kFirst = kArith ? F::kStages - 1 : 0;
+  constexpr bool kFactored = kArith && kTw4 && Twiddle<T, S>::kFactored;
+  [[maybe_unused]] const ColTwiddle<T, S, kFactored> ft(tw4, t, c0 + w);
 #pragma unroll
   for (int m = 0; m < F::kE; ++m) {
     const int p = F::template pos<kFirst>(t, m);
     const size_t idx = (size_t)p * S::kN2 + c0 + w;
     const size_t at = kStrided ? idx : (size_t)c0 * S::kN1 + p * C::kW + w;
-    if constexpr (kArith) {
+    if constexpr (kFactored) {
+      v[m] = cmulc(blk[at], ft(m));
+    } else if constexpr (kArith && kTw4) {
       v[m] = cmulc(blk[at], tw4[idx]);
+    } else if constexpr (kArith) {
+      v[m] = cmulc(blk[at], opaque_unit<T>(tw4));
     } else {
       v[m] = blk[at];
     }

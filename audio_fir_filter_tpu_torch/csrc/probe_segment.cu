@@ -21,12 +21,16 @@
 //   5 no_arith  (fft, mul): every FFT, twiddle, H and the 1/B scale;
 //               x shifted (y[o] = x[o + M - left]), exactly;
 //   6 floor     (dma, tr, fft, mul): the reads, the arithmetic and the
-//               strided layout; zeros, through the scratch and stored.
+//               strided layout; zeros, through the scratch and stored;
+//   7 no_tw4    (no TPU token): the column passes' reads of the four-step
+//               twiddle table, the multiply kept (by a unit held in
+//               registers); the passes with every four-step twiddle 1.
 // Every variant still moves the scratch three times and takes the peak.
-// Only the split of the probes' shapes is instantiated, B = 2^18 (512 x
-// 512), which keeps the build short; any other B, or another variant id,
-// returns cudaErrorInvalidValue, which the wrapper raises. The probes
-// allocate nothing and do not synchronize.
+// Only the splits of the probes' shapes are instantiated, B = 2^18 (512 x
+// 512) and 2^19 (1024 x 512, the column passes' 1024-point side), which
+// keeps the build short; any other B, or another variant id, returns
+// cudaErrorInvalidValue, which the wrapper raises. The probes allocate
+// nothing and do not synchronize.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,26 +39,14 @@
 
 namespace {
 
-using S18 = Split<9, 9>;
-
-template <typename T, typename IO>
-int run(const IO* x, IO* y, float* peak, const void* H, const void* tw4,
-        const void* w1, const void* w2, void* scratch, int channels,
-        long long n_in, long long out_len, long long left, int m, int log_n1,
-        int log_n2, long long chunk_pairs, int variant, cudaStream_t stream) {
-  if (log_n1 != S18::kLog1 || log_n2 != S18::kLog2) return cudaErrorInvalidValue;
-  Geometry g;
-  const long long total =
-      make_geometry(g, channels, n_in, out_len, left, m, log_n1 + log_n2);
-  unsigned int* pk = reinterpret_cast<unsigned int*>(peak);
-  const Cx<T>* h = static_cast<const Cx<T>*>(H);
-  const Cx<T>* t4 = static_cast<const Cx<T>*>(tw4);
-  const Cx<T>* r1 = static_cast<const Cx<T>*>(w1);
-  const Cx<T>* r2 = static_cast<const Cx<T>*>(w2);
-  Cx<T>* sc = static_cast<Cx<T>*>(scratch);
+template <typename T, typename IO, class S>
+int run_variant(const IO* x, IO* y, unsigned int* pk, const Cx<T>* h,
+                const Cx<T>* t4, const Cx<T>* r1, const Cx<T>* r2, Cx<T>* sc,
+                const Geometry& g, long long total, long long chunk_pairs,
+                int variant, cudaStream_t stream) {
   auto go = [&](auto a) {
-    return run_split<T, IO, S18, decltype(a)>(x, y, pk, h, t4, r1, r2, sc, g,
-                                              total, chunk_pairs, stream);
+    return run_split<T, IO, S, decltype(a)>(x, y, pk, h, t4, r1, r2, sc, g,
+                                            total, chunk_pairs, stream);
   };
   switch (variant) {
     case 0: return go(Shipped{});
@@ -64,8 +56,29 @@ int run(const IO* x, IO* y, float* peak, const void* H, const void* tw4,
     case 4: return go(Ablate<true, true, true, true, kRowsCopy>{});
     case 5: return go(Ablate<true, true, false, true, kRowsCopy>{});
     case 6: return go(Ablate<false, true, false, false, kRowsCopy>{});
+    case 7: return go(Ablate<true, true, true, true, kRowsFull, false>{});
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T, typename IO>
+int run(const IO* x, IO* y, float* peak, const void* H, const void* tw4,
+        const void* w1, const void* w2, void* scratch, int channels,
+        long long n_in, long long out_len, long long left, int m, int log_n1,
+        int log_n2, long long chunk_pairs, int variant, cudaStream_t stream) {
+  Geometry g;
+  const long long total =
+      make_geometry(g, channels, n_in, out_len, left, m, log_n1 + log_n2);
+  auto go = [&](auto sp) {
+    return run_variant<T, IO, decltype(sp)>(
+        x, y, reinterpret_cast<unsigned int*>(peak),
+        static_cast<const Cx<T>*>(H), static_cast<const Cx<T>*>(tw4),
+        static_cast<const Cx<T>*>(w1), static_cast<const Cx<T>*>(w2),
+        static_cast<Cx<T>*>(scratch), g, total, chunk_pairs, variant, stream);
+  };
+  if (log_n1 == 9 && log_n2 == 9) return go(Split<9, 9>{});
+  if (log_n1 == 10 && log_n2 == 9) return go(Split<10, 9>{});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -66,7 +66,10 @@
 // signal gather, the valid-hop scatter, the peak and the launch loop, with
 // the ablation switches whose defaults this file instantiates. All
 // twiddles and H come from host float64 tables (rounded to float for the
-// f32 modes); no fast-math sin/cos is used.
+// f32 modes); no fast-math sin/cos is used. Where the four-step twiddle
+// table would exceed 4 MiB (f64 from B = 2^19, f32 from 2^20) the column
+// passes take it as the product of two small factor tables
+// (fourstep.cuh Twiddle).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,6 +92,20 @@ int run(const IO* x, IO* y, float* peak, const void* H, const void* tw4,
         static_cast<const Cx<T>*>(H), static_cast<const Cx<T>*>(tw4),
         static_cast<const Cx<T>*>(w1), static_cast<const Cx<T>*>(w2),
         static_cast<Cx<T>*>(scratch), g, total, chunk_pairs, stream);
+  });
+}
+
+// The twiddle layout of one compute type at one split: [factored, table
+// bytes, lo rows, hi rows] (the rows 0 where the table is not factored).
+template <typename T>
+int twiddle_layout_of(int log_n1, int log_n2, long long* out) {
+  return with_split(log_n1, log_n2, [&](auto sp) {
+    using TW = Twiddle<T, decltype(sp)>;
+    out[0] = TW::kFactored;
+    out[1] = (long long)TW::kBytes;
+    out[2] = TW::kLoRows;
+    out[3] = TW::kHiRows;
+    return (int)cudaSuccess;
   });
 }
 
@@ -131,6 +148,20 @@ extern "C" int lowcut_segment_pass1_occupancy(int mode, int log_n1, int log_n2,
     case 0: return pass1_occupancy_of<float, float>(log_n1, log_n2, o);
     case 1: return pass1_occupancy_of<double, float>(log_n1, log_n2, o);
     case 2: return pass1_occupancy_of<float, int16_t>(log_n1, log_n2, o);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The four-step twiddle table the column passes of one mode (0 f32, 1 f64,
+// 2 i16) read at one split, as compiled: out[4] long longs, [factored (0
+// or 1), table bytes, lo rows, hi rows]. Needs no card.
+extern "C" int lowcut_segment_twiddle_layout(int mode, int log_n1, int log_n2,
+                                             void* out) {
+  long long* o = static_cast<long long*>(out);
+  switch (mode) {
+    case 0:
+    case 2: return twiddle_layout_of<float>(log_n1, log_n2, o);
+    case 1: return twiddle_layout_of<double>(log_n1, log_n2, o);
     default: return cudaErrorInvalidValue;
   }
 }

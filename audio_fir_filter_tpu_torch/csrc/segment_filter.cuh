@@ -80,12 +80,14 @@ inline long long make_geometry(Geometry& g, int channels, long long n_in,
 //              kArith = false also drops the twiddle tables and the 1/B
 //              scale;
 //   kRows:     what pass 2 runs (kRowsFull, or kRowsCopy: its load,
-//              shared-memory exchanges and store only).
+//              shared-memory exchanges and store only);
+//   kTw4:      the column passes' switch of fourstep.cuh: false multiplies
+//              by a unit in registers and reads no twiddle table.
 template <bool Gather = true, bool Store = true, bool Arith = true,
-          bool Strided = true, int RowsV = kRowsFull>
+          bool Strided = true, int RowsV = kRowsFull, bool Tw4 = true>
 struct Ablate {
   static constexpr bool kGather = Gather, kStore = Store, kArith = Arith,
-                        kStrided = Strided;
+                        kStrided = Strided, kTw4 = Tw4;
   static constexpr int kRows = RowsV;
 };
 using Shipped = Ablate<>;
@@ -282,7 +284,7 @@ cols_forward(const IO* __restrict__ x, Cx<T>* __restrict__ scratch,
     } else {
       opaque_zeros(v, x);
     }
-    cols_forward_store<T, S, A::kArith, A::kStrided>(
+    cols_forward_store<T, S, A::kArith, A::kStrided, A::kTw4>(
         v, s + w, tw, scratch + (size_t)c.pl * S::kB, tw4, c.c0, t, w);
   } else {
     uint32_t* ring = reinterpret_cast<uint32_t*>(smem_raw + C::kSmem);
@@ -315,7 +317,7 @@ cols_forward(const IO* __restrict__ x, Cx<T>* __restrict__ scratch,
       } else {
         opaque_zeros(v, x);
       }
-      cols_forward_store<T, S, A::kArith, A::kStrided>(
+      cols_forward_store<T, S, A::kArith, A::kStrided, A::kTw4>(
           v, s + w, tw, scratch + (size_t)c.pl * S::kB, tw4, c.c0, t, w);
     }
   }
@@ -340,7 +342,7 @@ cols_inverse(const Cx<T>* __restrict__ scratch, IO* __restrict__ y,
 
   if constexpr (A::kArith) F::build_table(tab, w1, tid, C::kThreads);
   Cx<T> v[F::kE];
-  cols_inverse_load<T, S, A::kArith, A::kStrided>(
+  cols_inverse_load<T, S, A::kArith, A::kStrided, A::kTw4>(
       v, tab + F::kTableElems + w, F::kGlobalTw ? w1 : tab,
       scratch + (size_t)blockIdx.y * S::kB, tw4, c0, t, w);
 

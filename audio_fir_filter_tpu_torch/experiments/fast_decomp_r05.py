@@ -26,7 +26,11 @@ leaves out, and its defined output, which is its plain version:
   the 1/B scale (dropped, as the TPU's ``mul`` dropped it) -> the shift
   ``y[o] = x[o + M - left]``, exactly;
 - ``floor`` (``dma``, ``tr``, ``fft``, ``mul``): the reads, the arithmetic
-  and the strided layout -> zeros, through the scratch and stored.
+  and the strided layout -> zeros, through the scratch and stored;
+- ``no_tw4`` (no TPU token): the column passes' reads of the four-step
+  twiddle table, their multiply kept (by a unit held in registers) -> the
+  three passes with every four-step twiddle 1, a 2-D circular
+  convolution of each pair's [N1, N2] view (:func:`_no_tw4`).
 
 x is zero outside [0, n_in); 16-bit I/O quantizes each output by the
 codec's rule. Left out, with the reason: ``alignedsrc`` (the TPU's
@@ -39,12 +43,16 @@ would depend on stale scratch, so it has no plain version), ``empty``
 The differences split the kernel's time: gather = full - no_gather,
 writeback = full - no_store, pass 2 arithmetic = full - rows_copy, column
 arithmetic = rows_copy - no_arith, strided layout = full - no_tr,
-data-movement floor = no_arith. Shapes: the bench's headline (2 channels x
-1008 hops at 96 kHz, ``-f 15 -s 10``: M = 38,400, B = 2^18, f64 and f32),
-its fast16 call (the same at 504 hops, 16-bit I/O) and chip_smoke's
-2 x 30 s (phase 3's shapes: i16 at 44.1 kHz, M = 17,640), whose scratch
-the L2 holds in part. The card's library instantiates B = 2^18 only:
-another B raises there; the plain versions take any.
+twiddle table reads = full - no_tw4, data-movement floor = no_arith.
+Shapes: the bench's headline (2 channels x 1008 hops at 96 kHz, ``-f 15
+-s 10``: M = 38,400, B = 2^18, f64 and f32), its fast16 call (the same at
+504 hops, 16-bit I/O), the long filter's call (``-f 10 -s 5``: M =
+76,800, B = 2^19, the 1024 x 512 split, 2 x 387 pairs as one call of the
+benchmark's ``long96k.device``, f64 and f32) and chip_smoke's 2 x 30 s
+(phase 3's shapes: i16 at 44.1 kHz, M = 17,640), whose scratch the L2
+holds in part, with 2 x 10 s of the long filter. The card's library
+instantiates B = 2^18 and 2^19 only: another B raises there; the plain
+versions take any.
 """
 
 from __future__ import annotations
@@ -61,25 +69,33 @@ from . import fused_phase_decomp as fpd
 from . import pallas_micro as pm
 
 VARIANTS = ("full", "no_gather", "no_store", "no_tr", "rows_copy",
-            "no_arith", "floor")
+            "no_arith", "floor", "no_tw4")
 # Variant ids of csrc/probe_segment.cu.
 _ID = {v: i for i, v in enumerate(VARIANTS)}
 # What each variant keeps: the gather, the stores of y, the column passes'
-# arithmetic, the strided layout, pass 2's arithmetic.
+# arithmetic, the strided layout, pass 2's arithmetic, the column passes'
+# reads of the twiddle table.
 _KEEPS = {
-    "full": (True, True, True, True, True),
-    "no_gather": (False, True, True, True, True),
-    "no_store": (True, False, True, True, True),
-    "no_tr": (True, True, True, False, True),
-    "rows_copy": (True, True, True, True, False),
-    "no_arith": (True, True, False, True, False),
-    "floor": (False, True, False, False, False),
+    "full": (True, True, True, True, True, True),
+    "no_gather": (False, True, True, True, True, True),
+    "no_store": (True, False, True, True, True, True),
+    "no_tr": (True, True, True, False, True, True),
+    "rows_copy": (True, True, True, True, False, True),
+    "no_arith": (True, True, False, True, False, False),
+    "floor": (False, True, False, False, False, False),
+    "no_tw4": (True, True, True, True, True, False),
 }
 # Variants whose plain version is exact (zeros or a shift): held bitwise.
 EXACT = ("no_gather", "no_store", "no_arith", "floor")
 
 HEADLINE_HOPS = 1008   # the bench's --segment-blocks
 FAST16_HOPS = 504      # the bench's fast16 call
+# The long filter (-f 10 -s 5 at 96 kHz, M = 76,800, B = 2^19): hops per
+# channel of one long96k.device call (2 x 345.6 M frames: 387 pairs each).
+LONG_TAPS = (10.0, 5.0)
+LONG_HOPS = 774
+LONG_B = 1 << 19
+SHAPES = ("headline", "fast16", "long", "2 x 30 s")
 MODES = ("f64", "f32", "i16")
 
 launches = {f"probe_segment_{m}": 0 for m in MODES}
@@ -139,6 +155,8 @@ def reference(x: torch.Tensor, plan, left: int, out_len: int, variant: str,
         xf = xf / 32768.0
     if variant == "no_tr":
         y = _no_tr(xf, plan, left, out_len)
+    elif variant == "no_tw4":
+        y = _no_tw4(xf, plan, left, out_len)
     else:
         y = shifted(xf, plan.m - left, out_len)
         if variant == "rows_copy":
@@ -172,6 +190,25 @@ def _no_tr(xf: torch.Tensor, plan, left: int, out_len: int) -> torch.Tensor:
     return yb.view(c, nb, b)[:, :, m:].reshape(c, nb * hop)[:, :out_len]
 
 
+def _no_tw4(xf: torch.Tensor, plan, left: int, out_len: int) -> torch.Tensor:
+    """The three passes with every four-step twiddle 1: pair k's windows
+    as the [N1, N2] view of x0 + i*x1, its 2-D DFT times H in natural
+    order (the kernel layout's rows and columns bit-reversed back), the
+    inverse 2-D DFT (1/B), then the valid-hop scatter."""
+    b, m, hop = plan.block_size, plan.m, plan.hop
+    c = xf.shape[0]
+    l1, l2 = sf.split(b)
+    nb = 2 * ((-(-out_len // hop) + 1) // 2)        # whole pairs per channel
+    w = sf.windows(xf, b, hop, left, nb)            # [c, nb, B]
+    z = torch.complex(w[:, 0::2], w[:, 1::2]).reshape(c, nb // 2, 1 << l1, 1 << l2)
+    br1 = torch.from_numpy(sf._bitrev(l1)).to(xf.device)
+    br2 = torch.from_numpy(sf._bitrev(l2)).to(xf.device)
+    hn = plan.H[br1][:, br2].to(z.dtype)
+    d = torch.fft.ifft2(torch.fft.fft2(z) * hn).reshape(c, nb // 2, b)
+    yb = torch.stack((d.real, d.imag), dim=2).reshape(c, nb, b)[:, :, m:]
+    return yb.reshape(c, nb * hop)[:, :out_len]
+
+
 # ---------------------------------------------------- traffic, shapes
 
 def variant_bytes(variant: str, plan, channels: int, n_in: int, out_len: int,
@@ -179,24 +216,27 @@ def variant_bytes(variant: str, plan, channels: int, n_in: int, out_len: int,
     """Device-memory bytes ``variant`` must move: the signal read once (if
     it gathers), y written once (if it stores), the scratch written by pass
     1, read and written by pass 2 and read by pass 3, and the tables once
-    each (the four-step twiddle, read by passes 1 and 3 with their
-    arithmetic; H, read by pass 2 with its own)."""
-    gather, store, arith, _, rows = _KEEPS[variant]
+    each (the four-step twiddle as the column passes read it,
+    ``sf.twiddle_layout``, by passes 1 and 3 unless the variant leaves its
+    reads out; H, read by pass 2 with its arithmetic)."""
+    gather, store, _, _, rows, tw4 = _KEEPS[variant]
     b, cx = plan.block_size, plan.H.element_size()
     sb = 2 if i16_io else 4
     pairs = channels * ((-(-out_len // plan.hop) + 1) // 2)
     n = 4 * pairs * cx * b
     n += sb * channels * n_in if gather else 0
     n += sb * channels * out_len if store else 0
-    n += 2 * cx * b if arith else 0
+    n += 2 * sf.twiddle_layout(b, plan.H.dtype)["bytes"] if tw4 else 0
     n += cx * b if rows else 0
     return n
 
 
-def shapes(dev, which=("headline", "fast16", "2 x 30 s")):
+def shapes(dev, which=SHAPES):
     """(shape name, mode, plan, x, left, out_len, i16) of each timed call:
     the bench's headline (extended segment, f64 and f32) and fast16 call
-    (16-bit I/O), and chip_smoke's phase-3 calls of 2 x 30 s."""
+    (16-bit I/O), the long filter's call (f64 and f32 at B = 2^19), and
+    chip_smoke's phase-3 calls of 2 x 30 s; ``2 x 10 s long``, the long
+    filter on 2 x 10 s (f64 and f32), is asked for by name only."""
     from ..models import LowCut
 
     fs = 96000.0
@@ -213,6 +253,18 @@ def shapes(dev, which=("headline", "fast16", "2 x 30 s")):
             seg = FAST16_HOPS * plan.hop
             x = bench._signal(2 * seg, dev).mul_(9830.0 / 0.3).to(torch.int16)
             yield name, "i16", plan, x.reshape(2, seg), plan.mo2, seg, True
+        elif name in ("long", "2 x 10 s long"):
+            long_taps = _probe.bench_taps(*LONG_TAPS)
+            for mode, precision in (("f64", sf.HIGH), ("f32", sf.FAST)):
+                plan = osv.make_plan(long_taps, precision, LONG_B, dev)
+                if name == "long":
+                    n = LONG_HOPS * plan.hop
+                    x = bench._signal(2 * n, dev).reshape(2, n)
+                else:
+                    n = int(10 * fs)
+                    g = torch.Generator(device=dev).manual_seed(n)
+                    x = torch.rand((2, n), generator=g, device=dev) - 0.5
+                yield name, mode, plan, x, plan.mo2, n, False
         else:
             for mode, precision, rate in (("f64", sf.HIGH, fs), ("f32", sf.FAST, fs),
                                           ("i16", sf.FAST, 44100.0)):
@@ -248,13 +300,15 @@ def _expect(name: str, got, want, mode: str, exact: bool) -> float:
 
 def verify(device="cuda") -> dict:
     """Every variant against its plain version at chip_smoke's 2 x 30 s
-    calls (f64, f32, i16): bitwise for the zero and shift variants, within
-    the stated tolerance (one PCM code for 16-bit I/O) for the others;
-    every peak against its plain version's, and ``no_store``'s equal to
-    ``full``'s bit for bit."""
+    calls (f64, f32, i16) and at the long filter's 2 x 10 s (f64, f32,
+    B = 2^19): bitwise for the zero and shift variants, within the stated
+    tolerance (one PCM code for 16-bit I/O) for the others; every peak
+    against its plain version's, and ``no_store``'s equal to ``full``'s bit
+    for bit."""
     dev = _probe.card(device)
     errs = {}
-    for _, mode, plan, x, left, n, i16 in shapes(dev, ("2 x 30 s",)):
+    for _, mode, plan, x, left, n, i16 in shapes(dev, ("2 x 30 s",
+                                                       "2 x 10 s long")):
         e = 0.0
         peaks = {}
         for v in VARIANTS:
@@ -270,53 +324,95 @@ def verify(device="cuda") -> dict:
         if peaks["no_store"] != peaks["full"]:
             raise RuntimeError(f"segment ablation {mode}: no_store's peak "
                                f"{peaks['no_store']} != full's {peaks['full']}")
-        errs[f"probe_segment_{mode}"] = e
+        key = f"probe_segment_{mode}"
+        errs[key] = max(errs.get(key, 0.0), e)
     torch.cuda.synchronize(dev)
     return errs
 
 
-def run(device="cuda", reps: int = 5) -> dict:
+# The variants whose passes run_passes times one by one, and the passes.
+PASS_VARIANTS = ("full", "no_tw4")
+PASS_NAMES = ("cols_forward", "rows_multiply", "cols_inverse")
+
+
+def variant_passes(x, plan, left: int, out_len: int, variant: str, i16: bool,
+                   out: torch.Tensor, reps: int) -> dict:
+    """Device us a pair of each pass (``PASS_NAMES``) of ``variant`` from
+    ``torch.profiler`` over ``reps`` calls (after one warm call); empty if
+    the profiler saw no device time."""
+    segment_ablation(x, plan, left, out_len, variant, i16, out=out)
+    torch.cuda.synchronize(x.device)
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(reps):
+            segment_ablation(x, plan, left, out_len, variant, i16, out=out)
+        torch.cuda.synchronize(x.device)
+    pairs = sf.call_pairs(x.shape[0], out_len, plan.hop)
+    us = {}
+    for ev in prof.key_averages():
+        for name in PASS_NAMES:
+            total = (getattr(ev, "device_time_total", 0)
+                     or getattr(ev, "cuda_time_total", 0))
+            if name in ev.key and ev.count and total:
+                us[name] = us.get(name, 0.0) + total / (reps * pairs)
+    return us
+
+
+def run(device="cuda", reps: int = 5, which=SHAPES, variants=VARIANTS) -> dict:
     """Every variant timed at each shape (``_probe.event_ms``, one reused
     output), with its traffic's GB/s and the differences; ``full`` bitwise
-    against the shipped kernel at the headline; the three passes under
-    ``torch.profiler`` at the headline; the plain version at the kernels
-    line's shapes (headline f64 and f32, fast16 i16), and ``F.conv1d`` at
-    the headline (``_probe.library_conv_ms``). At the headline and
-    fast16 shapes, whose scratch streams through device memory, a variant
-    faster than its own traffic at 3.35 TB/s fails (the compiler removed
-    work it should do). Frees its device memory before returning."""
+    against the shipped kernel at the headline and the long call; ``full``
+    and ``no_tw4`` pass by pass (:func:`variant_passes`) at the headline
+    and the long call; the three shipped passes under ``torch.profiler``
+    at the headline; the plain version at the kernels line's shapes
+    (headline f64 and f32, fast16 i16), and ``F.conv1d`` at the headline
+    (``_probe.library_conv_ms``). At the headline, fast16 and long
+    shapes, whose scratch streams through device memory, a variant faster
+    than its own traffic at 3.35 TB/s fails (the compiler removed work it
+    should do). ``which`` and ``variants`` narrow the sweep (the kernels
+    line needs the defaults). Frees its device memory before returning."""
+    for v in variants:
+        _check_variant(v)
     dev = _probe.card(device)
-    rows, lines, kernels = [], [], {}
-    for name, mode, plan, x, left, n, i16 in shapes(dev):
+    rows, lines, kernels, by_pass = [], [], {}, []
+    for name, mode, plan, x, left, n, i16 in shapes(dev, which):
         c = x.shape[0]
         pairs = c * ((-(-n // plan.hop) + 1) // 2)
         y = torch.zeros((c, n), dtype=x.dtype, device=dev)
         t = {v: _probe.event_ms(lambda v=v: segment_ablation(
-            x, plan, left, n, v, i16, out=y), reps) for v in VARIANTS}
-        for v in VARIANTS:
+            x, plan, left, n, v, i16, out=y), reps) for v in variants}
+        b = f"2^{plan.block_size.bit_length() - 1}"
+        for v in variants:
             nbytes = variant_bytes(v, plan, c, x.shape[1], n, i16)
             rate = nbytes / (t[v] * 1e-3)
             if name != "2 x 30 s" and rate > roofline.HBM_BYTES_PER_S:
                 raise RuntimeError(
                     f"segment ablation {name} {mode} {v}: {rate / 1e12:.3f} TB/s "
                     f"of its own traffic in {t[v]:.4f} ms, above 3.35 TB/s")
-            rows.append([name, mode, v, t[v], t[v] * 1e3 / pairs, rate / 1e9])
-        lines.append(
-            f"{name} {mode} ({pairs} pairs): gather (full - no_gather) "
-            f"{t['full'] - t['no_gather']:.4f} ms, writeback (full - no_store) "
-            f"{t['full'] - t['no_store']:.4f} ms, pass 2 arithmetic "
-            f"(full - rows_copy) {t['full'] - t['rows_copy']:.4f} ms, column "
-            f"arithmetic (rows_copy - no_arith) "
-            f"{t['rows_copy'] - t['no_arith']:.4f} ms, strided layout "
-            f"(full - no_tr) {t['full'] - t['no_tr']:.4f} ms, data-movement "
-            f"floor (no_arith) {t['no_arith']:.4f} ms, floor {t['floor']:.4f} ms")
-        if name == "headline" or (name == "fast16" and mode == "i16"):
+            rows.append([name, b, mode, v, t[v], t[v] * 1e3 / pairs, rate / 1e9])
+        parts = [(label, a, z) for label, a, z in (
+            ("gather", "full", "no_gather"), ("writeback", "full", "no_store"),
+            ("pass 2 arithmetic", "full", "rows_copy"),
+            ("column arithmetic", "rows_copy", "no_arith"),
+            ("strided layout", "full", "no_tr"),
+            ("twiddle table reads", "full", "no_tw4")) if a in t and z in t]
+        lines.append(f"{name} {mode} ({pairs} pairs): " + ", ".join(
+            [f"{label} ({a} - {z}) {t[a] - t[z]:.4f} ms" for label, a, z in parts]
+            + [f"{v} {t[v]:.4f} ms" for v in ("no_arith", "floor") if v in t]))
+        if name in ("headline", "long") and not i16:
+            for v in PASS_VARIANTS:
+                if v in variants:
+                    us = variant_passes(x, plan, left, n, v, i16, y, reps)
+                    by_pass.append([name, b, mode, v] + [
+                        us[p] if p in us else "not measured" for p in PASS_NAMES])
+        if name in ("headline", "long") or (name == "fast16" and mode == "i16"):
             got = segment_ablation(x, plan, left, n, "full", i16)
             want = sf.segment_filter(x, plan, left, n, i16_io=i16)
             if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                 raise RuntimeError(f"segment ablation {name} {mode}: full is not "
                                    "bitwise the shipped kernel")
             del want
+        if name == "headline" or (name == "fast16" and mode == "i16"):
             plain = _probe.event_ms(lambda: reference(x, plan, left, n, "full",
                                                       i16), 3)
             # The row times the full variant, the shipped filter: F.conv1d
@@ -329,36 +425,58 @@ def run(device="cuda", reps: int = 5) -> dict:
                 lines.append(f"library {name} {mode}: F.conv1d (cuDNN, TF32 off) "
                              f"{lib_ms:.4f} ms, max abs diff from full "
                              f"{lib_err:.3e}")
-            del got
             w = roofline.work(plan, c, x.shape[1], n, sample_bytes=2 if i16 else 4)
             kernels[f"probe_segment_{mode}"] = {
                 "ms": t["full"], "plain_ms": plain, "library_ms": lib_ms,
                 **roofline.bound_keys(w)}
+        got = None
         del x, y
     head = _probe.table(
-        f"segment kernel ablations, B = 2^18 (CUDA events, median of {reps}; "
-        "GB/s of each variant's own traffic)",
-        ["shape", "mode", "variant", "ms", "us/pair", "GB/s"], rows)
-    seg = []
-    m = len(_probe.bench_taps()) - 1
-    hop = osv.choose_block_size(m + 1) - m
-    for precision, mode in (("high", "f64"), ("fast", "f32")):
-        us = pm.segment_passes(dev, precision, reps, frames=HEADLINE_HOPS * hop)
-        for p in ("cols_forward", "rows_multiply", "cols_inverse"):
-            seg.append([f"headline {mode}", p,
-                        us[p] / 1e3 if p in us else "not measured"])
-    lines += _probe.table(
-        f"shipped segment kernel per pass at the headline shape "
-        f"(torch.profiler, mean of {reps} calls)", ["shape", "pass", "ms"], seg)
+        f"segment kernel ablations (CUDA events, median of {reps}; GB/s of "
+        "each variant's own traffic)",
+        ["shape", "B", "mode", "variant", "ms", "us/pair", "GB/s"], rows)
+    if by_pass:
+        lines += _probe.table(
+            f"segment kernel ablations pass by pass (torch.profiler over {reps} "
+            "calls; device us a pair)", ["shape", "B", "mode", "variant",
+                                          *PASS_NAMES], by_pass)
+    if "headline" in which:
+        seg = []
+        m = len(_probe.bench_taps()) - 1
+        hop = osv.choose_block_size(m + 1) - m
+        for precision, mode in (("high", "f64"), ("fast", "f32")):
+            us = pm.segment_passes(dev, precision, reps, frames=HEADLINE_HOPS * hop)
+            for p in PASS_NAMES:
+                seg.append([f"headline {mode}", p,
+                            us[p] / 1e3 if p in us else "not measured"])
+        lines += _probe.table(
+            f"shipped segment kernel per pass at the headline shape "
+            f"(torch.profiler, mean of {reps} calls)", ["shape", "pass", "ms"], seg)
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     return {"lines": head + lines, "kernels": kernels}
 
 
-def main() -> None:
+def main(argv=None) -> int:
+    """``[--shapes a,b] [--variants a,b] [--reps n]``: verify every
+    variant, then :func:`run` (the defaults: every shape and variant, 10
+    reps)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--shapes", default=",".join(SHAPES))
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--reps", type=int, default=10)
+    a = ap.parse_args(argv)
+    which = tuple(a.shapes.split(","))
+    bad = [w for w in which if w not in SHAPES]
+    if bad:
+        ap.error(f"unknown shapes {bad}; choose from {SHAPES}")
     verify()
-    print("\n".join(run(reps=10)["lines"]))
+    r = run(reps=a.reps, which=which, variants=tuple(a.variants.split(",")))
+    print("\n".join(r["lines"]))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

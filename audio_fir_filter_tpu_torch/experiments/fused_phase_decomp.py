@@ -153,7 +153,8 @@ def reference(blocks: torch.Tensor, H: torch.Tensor, variant: str) -> torch.Tens
 @dataclass(frozen=True)
 class FusedPlan:
     """What the fused kernel reads besides x: the M = B/2 point four-step
-    tables (``sf.kernel_tables(M)``: ``tw4`` [N1, N2], ``w1``, ``w2``) and
+    tables (``tw4`` [N1, N2], ``sf.full_twiddle(M)``, which the kernel
+    reads whole; ``w1``, ``w2`` of ``sf.kernel_tables(M)``) and
     ``ab`` [N1, N2, 2], the split step's alpha and beta at each bin's
     place; ``H`` is the kernel-layout spectrum they come from. At B = 2^18,
     ``ab_lanes`` is ``ab`` in the kernel's thread order, [512, 8, 32, 2]:
@@ -184,7 +185,8 @@ def fused_plan(H: torch.Tensor) -> FusedPlan:
     if b < 8:
         raise ValueError(f"the fused block needs B >= 8, got {b}")
     m = b // 2
-    tw4, w1, w2 = sf.kernel_tables(m, H.dtype, H.device)
+    tw4 = sf.full_twiddle(m, H.dtype, H.device)
+    _, w1, w2 = sf.kernel_tables(m, H.dtype, H.device)
     hn = sf.natural_spectrum(H.detach().to("cpu", torch.complex128)).numpy()
     ab = split_coefficients(hn)[_bin_index(m)]
     lanes = None

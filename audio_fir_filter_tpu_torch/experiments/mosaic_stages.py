@@ -135,7 +135,7 @@ def roots(n: int, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def cmul_table(dtype: torch.dtype, device) -> torch.Tensor:
-    return sf.kernel_tables(N * N, dtype, torch.device(device))[0]
+    return sf.full_twiddle(N * N, dtype, torch.device(device))
 
 
 def dif_plan(n: int) -> tuple:

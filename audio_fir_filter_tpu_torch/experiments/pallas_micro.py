@@ -175,7 +175,7 @@ def blocks_of(z: torch.Tensor) -> torch.Tensor:
 def k1_reference(blocks: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
     b = blocks.shape[1]
     l1, _ = sf.split(b)
-    tw4 = sf.kernel_tables(b, H.dtype, blocks.device)[0]
+    tw4 = sf.full_twiddle(b, H.dtype, blocks.device)
     z = torch.fft.fft(pairs_of(blocks, H.dtype), dim=1)
     return z[:, _bitrev(l1, blocks.device), :] * tw4
 
@@ -195,7 +195,7 @@ def k2_reference(scratch: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
 def k3_reference(scratch: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
     b = H.numel()
     n1 = H.shape[0]
-    tw4 = sf.kernel_tables(b, H.dtype, scratch.device)[0]
+    tw4 = sf.full_twiddle(b, H.dtype, scratch.device)
     br1 = _bitrev(sf.split(b)[0], scratch.device)
     z = torch.fft.ifft((scratch * tw4.conj())[:, br1, :], dim=1) * (n1 / b)
     return blocks_of(z)

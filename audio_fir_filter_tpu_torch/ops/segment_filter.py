@@ -43,10 +43,13 @@ HIGH = "high"
 # (``run_split`` in ``csrc/segment_filter.cuh``), reckoned on the host
 # from the same chunking (:func:`entry_chunks` of :func:`scratch_pairs`);
 # ``splits``, the same calls by ``"<mode> <log2 N1>x<log2 N2>"``, the
-# four-step split (:func:`split`) each ran at.
+# four-step split (:func:`split`) each ran at; ``twiddle_factored``, the
+# calls whose column passes took the factored twiddle tables
+# (:func:`twiddle_layout`).
 launches = {"f32": 0, "f64": 0, "i16": 0}
 kernels = {"f32": 0, "f64": 0, "i16": 0}
 splits: collections.Counter = collections.Counter()
+twiddle_factored = {"f32": 0, "f64": 0, "i16": 0}
 
 # Kernels the C entry point issues per scratch chunk: its three passes.
 KERNELS_PER_CHUNK = 3
@@ -95,7 +98,8 @@ def pass1_tiles(b: int) -> int:
 
 _PASS1_KEYS = ("ctas_per_sm", "threads", "smem_bytes", "registers",
                "local_bytes", "ring_depth", "tiles", "resident_ctas")
-_PASS1_MODES = {"f32": 0, "f64": 1, "i16": 2}
+# The C entry points' mode ids.
+_MODE_IDS = {"f32": 0, "f64": 1, "i16": 2}
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,7 +120,7 @@ def pass1_occupancy(mode: str, b: int, device_index: int = 0) -> dict:
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(_PASS1_KEYS))()
     with torch.cuda.device(device_index):
-        rc = fn(_PASS1_MODES[mode], *split(b), ctypes.addressof(out))
+        rc = fn(_MODE_IDS[mode], *split(b), ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"pass 1 occupancy query failed: CUDA error {rc}")
     return dict(zip(_PASS1_KEYS, out))
@@ -193,25 +197,134 @@ def natural_spectrum(H: torch.Tensor) -> torch.Tensor:
     return H.reshape(-1)[_natural_index_on(H.numel(), H.device)]
 
 
+# The largest four-step twiddle table the column passes read whole; above
+# it they take two factor tables (``fourstep.cuh`` ``Twiddle``).
+TWIDDLE_TABLE_MAX = 4 << 20
+
+
+def twiddle_layout(b: int, dtype: torch.dtype) -> dict:
+    """The four-step twiddle table the column passes read at block size
+    ``b`` in ``dtype`` (complex64 / complex128): ``factored``, two factor
+    tables where the full [N1, N2] table would exceed
+    :data:`TWIDDLE_TABLE_MAX` (f64 from B = 2^19, f32 from 2^20); its
+    ``bytes``; and the factor tables' ``lo_rows`` and ``hi_rows``
+    (:func:`twiddle_rows`; 0 where it is not factored). The kernels decide
+    the same at compile time (``fourstep.cuh`` ``Twiddle``), which
+    :func:`library_twiddle_layout` reports."""
+    n1, n2 = split_shape(b)
+    factored = b * dtype.itemsize > TWIDDLE_TABLE_MAX
+    lo, hi = twiddle_rows(b) if factored else (0, 0)
+    rows = lo + hi if factored else n1
+    return {"factored": factored, "bytes": rows * n2 * dtype.itemsize,
+            "lo_rows": lo, "hi_rows": hi}
+
+
+_TWIDDLE_KEYS = ("factored", "bytes", "lo_rows", "hi_rows")
+
+
+def library_twiddle_layout(mode: str, b: int) -> dict:
+    """:func:`twiddle_layout` as the built segment kernel of ``mode`` has
+    it at block size ``b`` (``lowcut_segment_twiddle_layout``). Builds the
+    library; needs no card."""
+    import ctypes
+
+    from . import _build
+
+    fn = _build.library("segment_filter").lowcut_segment_twiddle_layout
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(_TWIDDLE_KEYS))()
+    rc = fn(_MODE_IDS[mode], *split(b), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"twiddle layout query failed: CUDA error {rc}")
+    got = dict(zip(_TWIDDLE_KEYS, out))
+    got["factored"] = bool(got["factored"])
+    return got
+
+
+def twiddle_rows(b: int) -> tuple[int, int]:
+    """(lo rows, hi rows) of the factored twiddle at block size ``b``:
+    2^h and 8, h = L1 - 3 (L1 = log2 N1 >= 3): the column passes' thread
+    t holds rows 8 t + m, whose k1 = bitrev(8 t + m) is bitrev(m) * 2^h
+    + bitrev(t) (``fourstep.cuh`` ``ColTwiddle``)."""
+    l1 = split(b)[0]
+    if l1 < 3:
+        raise ValueError(f"the factored twiddle needs N1 >= 8, got B = {b}")
+    return 1 << (l1 - 3), 8
+
+
+def four_step_twiddle(b: int) -> np.ndarray:
+    """Float64 four-step twiddle [N1, N2]: entry (pos, n2) is
+    exp(-2*pi*i * n2 * bitrev(pos) / B), what the column passes multiply
+    scratch row pos by."""
+    l1, l2 = split(b)
+    k = (np.arange(1 << l2, dtype=np.int64)[None, :] * _bitrev(l1)[:, None]) % b
+    return np.exp(-2j * np.pi * k / b)
+
+
+def unit_roots(k: np.ndarray, b: int) -> np.ndarray:
+    """exp(-2*pi*i * k / b) in float64 for integer ``k`` and ``b`` a power
+    of two of at least 8, each part within about an ulp: k reduced to the
+    first octant (an angle of at most pi/4, where the angle's own rounding
+    is smallest), one cos and sin there, then the octant's and the quarter
+    turns' symmetries, which are exact."""
+    q, r = np.divmod(np.asarray(k, dtype=np.int64) % b, b // 4)
+    swap = r > b // 8
+    theta = 2 * np.pi * (np.where(swap, b // 4 - r, r) / b)
+    c, s = np.cos(theta), np.sin(theta)
+    # w^r = (c, -s); past the octant w^r = -i * conj(w^(b/4 - r)) = (s, -c).
+    re, im = np.where(swap, s, c), -np.where(swap, c, s)
+    # Times (-i)^q: (re, im) -> (im, -re) per quarter turn.
+    out = np.empty(re.shape, dtype=np.complex128)
+    for turns, (a, bb) in enumerate(((re, im), (im, -re), (-re, -im), (-im, re))):
+        sel = q == turns
+        out.real[sel], out.imag[sel] = a[sel], bb[sel]
+    return out
+
+
+def twiddle_factors(b: int) -> np.ndarray:
+    """Float64 factored twiddle, [lo rows + hi rows, N2] (:func:`twiddle_rows`):
+    lo[k_lo, c] = exp(-2*pi*i * k_lo * c / B), then hi[k_hi, c] =
+    exp(-2*pi*i * k_hi * 2^h * c / B) (:func:`unit_roots`), so that
+    four_step_twiddle(b)[pos, c] = hi[k1 >> h, c] * lo[k1 & (2^h - 1), c]
+    with k1 = bitrev(pos)."""
+    lo_rows, hi_rows = twiddle_rows(b)
+    c = np.arange(split_shape(b)[1], dtype=np.int64)[None, :]
+    k = np.concatenate([np.arange(lo_rows, dtype=np.int64),
+                        np.arange(hi_rows, dtype=np.int64) * lo_rows])
+    return unit_roots(k[:, None] * c, b)
+
+
+def _on(t: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(t)).to(device=device, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def full_twiddle(b: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """:func:`four_step_twiddle` rounded to ``dtype`` on ``device``, for the
+    plain versions (and the probe kernels that read it whole)."""
+    return _on(four_step_twiddle(b), dtype, device)
+
+
 @functools.lru_cache(maxsize=8)
 def kernel_tables(b: int, dtype: torch.dtype, device: torch.device):
     """The kernel's constant tables, computed in float64 on the host and
     rounded to ``dtype`` (complex64 / complex128) on ``device``:
 
-    - ``tw4`` [N1, N2]: four-step twiddle exp(-2*pi*i * n2 * bitrev(pos) / B);
+    - ``tw4``: the four-step twiddle as the column passes read it
+      (:func:`twiddle_layout`): where factored, the two factor tables of
+      :func:`twiddle_factors`, else the full [N1, N2]
+      :func:`four_step_twiddle`;
     - ``w1`` [N1/2], ``w2`` [N2/2]: exp(-2*pi*i * k / N) of each side's FFT.
     """
-    l1, l2 = split(b)
-    n1, n2 = 1 << l1, 1 << l2
-    k = (np.arange(n2, dtype=np.int64)[None, :] * _bitrev(l1)[:, None]) % b
-    tw4 = np.exp(-2j * np.pi * k / b)
+    n1, n2 = split_shape(b)
 
     def roots(n):
         return np.exp(-2j * np.pi * np.arange(n // 2) / n)
 
-    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device=device,
-                                                              dtype=dtype)
-                 for t in (tw4, roots(n1), roots(n2)))
+    factored = twiddle_layout(b, dtype)["factored"]
+    tw4 = twiddle_factors(b) if factored else four_step_twiddle(b)
+    return tuple(_on(t, dtype, device) for t in (tw4, roots(n1), roots(n2)))
 
 
 def windows(x: torch.Tensor, b: int, hop: int, left: int, nb: int) -> torch.Tensor:
@@ -281,6 +394,8 @@ def _launch(x, plan, left, out_len, i16_io):
     launches[mode] += 1
     l1, l2 = split(plan.block_size)
     splits[f"{mode} {l1}x{l2}"] += 1
+    if twiddle_layout(plan.block_size, plan.H.dtype)["factored"]:
+        twiddle_factored[mode] += 1
     return y, peak
 
 
@@ -295,9 +410,10 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     gets the chunks, the kernels, pass 1's grid (``pass1_ctas``, of the
     first chunk), the (pair, column tile) items its CTAs walk
     (``pass1_items``, all chunks), the split (``log_n1``, ``log_n2``), the
-    pairs the call filters (``pairs``) and a chunk holds (``chunk_pairs``)
-    and pass 1's ring depth (``pass1_ring``, 0 without a ring). Returns the
-    kernels it launched; raises if the launch failed."""
+    pairs the call filters (``pairs``) and a chunk holds (``chunk_pairs``),
+    pass 1's ring depth (``pass1_ring``, 0 without a ring) and the bytes
+    of twiddle table the column passes read a pair (``twiddle_bytes``).
+    Returns the kernels it launched; raises if the launch failed."""
     from . import _build
 
     dev = x.device
@@ -328,7 +444,7 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
             s.set(chunks=chunks, kernels=KERNELS_PER_CHUNK * chunks,
                   pass1_ctas=ctas, pass1_items=pairs * tiles, log_n1=l1,
                   log_n2=l2, pairs=pairs, chunk_pairs=chunk,
-                  pass1_ring=occ["ring_depth"])
+                  pass1_ring=occ["ring_depth"], twiddle_bytes=tw4.nbytes)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), peak.data_ptr(), H.data_ptr(),
                 tw4.data_ptr(), w1.data_ptr(), w2.data_ptr(),

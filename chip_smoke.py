@@ -22,7 +22,13 @@ result line):
    ``experiments/_probe.event_ms``); pass 1's occupancy at B = 2^18 in
    each mode, and in f64 at B = 2^19 (the 1024 x 512 split of M = 76,800)
    (ring depth, CTAs per SM, registers), which must have no local (stack
-   or spill) bytes;
+   or spill) bytes; each mode's four-step twiddle layout at B = 2^18 and
+   2^19 (the full table, or two factor tables where it would exceed
+   4 MiB), failing where the library's compile-time rule and
+   ``kernel_tables``' rule disagree at any B = 2^2 .. 2^26; the long
+   filter at 1024 x 512 in f64 (factored twiddle): the segment kernel
+   through ``same_filter_peak`` and the block kernel against their plain
+   versions within 1 LSB@24, the call counted by ``twiddle_factored``;
 4. a float64 direct-convolution oracle on excerpts (head, a block seam,
    tail) of the phase-3 kernel outputs; then kernel vs plain version at
    small edge shapes (B 256-2048, 1-3 channels, halo-extended input), and
@@ -40,7 +46,10 @@ result line):
    segments), (b) a 5-minute 44.1 kHz stereo 16-bit WAV (the 16-bit-native
    route), (c) a loud 16-bit WAV that saturates, falls back to float32 and
    auto-normalizes. Launch counters are zeroed before (a) and read after
-   (c); every segment-kernel mode must have launched;
+   (c); every segment-kernel mode must have launched, none with the
+   factored twiddle; then (a) with the long filter (``-f 10 -s 5``,
+   B = 2^19): every launch f64 at 10x9 and counted by
+   ``twiddle_factored``, oracle excerpts within 1 LSB@24;
 7. the block path through the CLI, ``--engine fourstep``, on files (a)
    and (b): oracle excerpts, metadata, no 16-bit route; counters zeroed
    before and read after, both block-kernel modes must have launched and
@@ -375,6 +384,8 @@ def _zero_counts() -> None:
         for k in counts:
             counts[k] = 0
     sf.splits.clear()
+    for k in sf.twiddle_factored:
+        sf.twiddle_factored[k] = 0
 
 
 def _counts() -> dict:
@@ -541,7 +552,84 @@ def phase_kernels() -> dict:
         results[mode] = {"max_abs_err": err_abs, "ms": min(ms, ms2),
                          "plain_ms": plain_ms, **roofline.bound_keys(w),
                          "library_ms": lib_ms}
+    _twiddle_rows()
+    _long_split_kernels()
     return results
+
+
+# The compute type of each segment-kernel mode's tables.
+TABLE_TYPES = {"f32": torch.complex64, "f64": torch.complex128,
+               "i16": torch.complex64}
+
+
+def _twiddle_rows() -> None:
+    """Print each mode's four-step twiddle layout at B = 2^18 and 2^19;
+    fail where the library's compile-time rule (``fourstep.cuh``
+    ``Twiddle``, asked through ``lowcut_segment_twiddle_layout``) and
+    ``kernel_tables``' rule (``segment_filter.twiddle_layout``) disagree
+    at any B = 2^2 .. 2^26."""
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+
+    for mode, dtype in TABLE_TYPES.items():
+        for k in range(2, 27):
+            host = sf.twiddle_layout(1 << k, dtype)
+            lib = sf.library_twiddle_layout(mode, 1 << k)
+            check(lib == host, f"twiddle {mode} at B = 2^{k}: the library has "
+                  f"{lib}, kernel_tables {host}")
+        print(f"twiddle {mode}: " + "; ".join(
+            f"B = 2^{k} " + ("factored, {lo_rows} + {hi_rows} rows".format(**lay)
+                             if lay["factored"] else "full table")
+            + f", {lay['bytes']} bytes"
+            for k, lay in ((k, sf.twiddle_layout(1 << k, dtype)) for k in (18, 19)))
+            + "; the library's rule agrees at B = 2^2 .. 2^26")
+
+
+def _long_split_kernels() -> None:
+    """The long filter's split, 1024 x 512 in f64 (M = 76,800 at 96 kHz,
+    B = 2^19), where the column passes take the factored twiddle: the
+    segment kernel through ``same_filter_peak`` on 2 x 30 s and the block
+    kernel on 4 blocks, each against its plain version within the
+    ``high`` gate (1 LSB@24); the segment call counted by
+    ``twiddle_factored``."""
+    from audio_fir_filter_tpu_torch.models import LowCut
+    from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
+    from audio_fir_filter_tpu_torch.ops import overlap_save as osv
+    from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+
+    rng = np.random.default_rng(SEED + 7)
+    model = LowCut(freq=10.0, slope=5.0)
+    plan = model.plan(96000.0, precision="high", device="cuda")
+    check(sf.split(plan.block_size) == (10, 9) and plan.m == 76800,
+          f"long filter: M = {plan.m}, split {sf.split(plan.block_size)}")
+    check(sf.twiddle_layout(plan.block_size, plan.H.dtype)["factored"],
+          "long filter: the twiddle is not factored")
+    x = torch.from_numpy(_signal(96000.0, 30.0, rng)).cuda()
+    before = sf.launches["f64"], sf.twiddle_factored["f64"]
+    y, pk = osv.same_filter_peak(x, plan)
+    check((sf.launches["f64"], sf.twiddle_factored["f64"])
+          == (before[0] + 1, before[1] + 1),
+          f"long filter: launches {before[0]} -> {sf.launches['f64']}, "
+          f"twiddle_factored {before[1]} -> {sf.twiddle_factored['f64']}")
+    yp, _ = sf.reference(x, plan, plan.mo2, x.shape[1])
+    a = y.cpu().numpy().astype(np.float64)
+    err = scaled_lsb_error(a, yp.cpu().numpy().astype(np.float64), 24)
+    check(err <= 1.0, f"long filter: segment kernel vs plain {err} LSB@24 > 1")
+    top = float(np.abs(a).max())
+    check(abs(float(pk) - top) <= 1e-6 * top, f"long filter: peak {float(pk)} != {top}")
+    bplan = model.plan(96000.0, precision="high", device="cuda", engine="fourstep")
+    check(bplan.block_size == plan.block_size, "long filter: the block path's B differs")
+    blocks = torch.from_numpy(
+        rng.uniform(-1, 1, (4, bplan.block_size)).astype(np.float32)).cuda()
+    ak = cb.conv_real_blocks(blocks, bplan).cpu().numpy().astype(np.float64)
+    ap = cb.reference(blocks, bplan).cpu().numpy().astype(np.float64)
+    berr = scaled_lsb_error(ak, ap, 24)
+    check(berr <= 1.0, f"long filter: block kernel vs plain {berr} LSB@24 > 1")
+    del x, y, yp, blocks
+    torch.cuda.empty_cache()
+    print(f"long filter (M = {plan.m}, B = 2^19, 1024 x 512, f64, factored "
+          f"twiddle): segment kernel vs plain {err:.4f} LSB@24 (2 x 30 s, "
+          f"counted by twiddle_factored), block kernel vs plain {berr:.4f} "
+          "LSB@24 (4 blocks)")
 
 
 def _pass1_row(sf, mode: str, log_b: int) -> None:
@@ -949,6 +1037,30 @@ def phase_main_path(card: str, files: dict) -> dict:
 
     for tag in "abc":
         _print_stages(tag, single[tag][3], card)
+
+    # (a) again with the long filter (-f 10 -s 5: M = 76,800, B = 2^19):
+    # the f64 kernel at the 1024 x 512 split, whose column passes take the
+    # factored twiddle; the default runs above took none.
+    check(not any(sf.twiddle_factored.values()),
+          f"the default runs took the factored twiddle: {sf.twiddle_factored}")
+    _zero_counts()
+    long_out = _out(files["a"], "long")
+    ml, _, _ = _timed_cli([str(files["a"]), str(long_out), "-f", "10", "-s", "5"])
+    n = sf.launches["f64"]
+    check(n > 0 and sf.twiddle_factored == {"f32": 0, "f64": n, "i16": 0}
+          and dict(sf.splits) == {"f64 10x9": n},
+          f"(a long) {n} f64 launches, by split {dict(sf.splits)}, "
+          f"twiddle_factored {sf.twiddle_factored}")
+    long96 = LowCut(freq=10.0, slope=5.0)
+    plan_long = long96.plan(96000.0, precision="high", device="cuda")
+    err_l = _file_excerpts(files["a"], long_out, long96.taps(96000.0),
+                           default_segment_len(plan_long, channels=2), 24)
+    print(f"(a long) -f 10 -s 5, M={plan_long.m}, B={plan_long.block_size}: "
+          f"{n} f64 launches, all at 10x9 and counted by twiddle_factored; "
+          f"excerpts {err_l:.4f} LSB@24")
+    check(err_l <= 1.0, f"(a long) excerpt error {err_l} LSB@24 > 1")
+    _print_stages("a long", ml, card)
+    long_out.unlink()
     return {"counts": counts, "single": single}
 
 

@@ -11,7 +11,9 @@ process per turn, in the order other, this, this, other, with the turn's
 checkout as its working directory, imports that checkout's package and
 ``chip_smoke.py`` and prints:
 
-- the ``ptxas`` summary line of its build (``chip_smoke._ptxas_summary``);
+- the ``ptxas`` summary line of its build (``chip_smoke._ptxas_summary``),
+  and the ``ptxas`` report of each B = 2^18 (512 x 512) instantiation,
+  with the sha256 of its SASS where the toolkit has ``cuobjdump``;
 - the sha256 of the kernel's output and peak on chip_smoke's phase-3 calls
   (the seeded 2 x 30 s inputs: f64 and f32 at 96 kHz, i16 at 44.1 kHz);
 - the sha256 of file (a) (chip_smoke's 10-minute 96 kHz 24-bit WAV, made
@@ -22,9 +24,11 @@ It fails unless every turn's hashes and ``ptxas`` lines are equal, and
 prints each turn's times: a difference between the two checkouts reads
 only against the spread of one checkout's two turns. ``--new-code``: the
 change compiles to other code by design (a redesigned pass with the same
-arithmetic); the hashes must still be equal, the ``ptxas`` lines of the
-two checkouts are printed and may differ (each checkout's two turns must
-still agree).
+arithmetic, or one that changes only other splits); the hashes must still
+be equal, the ``ptxas`` lines of the two checkouts are printed and may
+differ (each checkout's two turns must still agree), and it prints
+whether the 2^18 instantiations' ``ptxas`` reports and SASS are the
+same in both checkouts.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ _BUILD = ("import sys; sys.path.insert(0, '.'); "
           "_build.build('segment_filter', force=True)")
 
 _TURN = textwrap.dedent("""
-    import hashlib, json, sys
+    import hashlib, json, os, re, shutil, subprocess, sys
     sys.path.insert(0, ".")
     import numpy as np
     import torch
@@ -56,7 +60,36 @@ _TURN = textwrap.dedent("""
 
     log = (_build.BUILD_DIR / "segment_filter.ptxas.log").read_text()
     out = {"root": str(__import__("pathlib").Path(".").resolve()),
-           "ptxas": cs._ptxas_summary(log), "sha": {}, "ms": {}}
+           "ptxas": cs._ptxas_summary(log), "sha": {}, "ms": {},
+           "ptxas18": {}, "sass18": None}
+    # The 2^18 (512 x 512) instantiations: their ptxas reports and SASS,
+    # with the anonymous namespace's name (it hashes the source's path),
+    # the ablation policy's arguments (a new switch adds one) and ptxas's
+    # compile times left out.
+    tag, cur = "SplitILi9ELi9E", None
+    anon = re.compile(r"_GLOBAL__N__[0-9a-f]+_\\d+_\\w+?_cu_[0-9a-f]{8}"
+                      r"|(?<=NS_6Ablate)I(?:L[bi]\\d+E)+E")
+    for line in log.splitlines():
+        line = anon.sub("anon", line)
+        m = re.search(r"Compiling entry function '(\\S+)'", line)
+        if m:
+            cur = m[1] if tag in m[1] else None
+            if cur:
+                out["ptxas18"][cur] = []
+        elif cur and "Compile time" not in line:
+            out["ptxas18"][cur].append(line.split(":", 1)[-1].strip())
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if os.path.isfile(cuobjdump):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(_build.BUILD_DIR / "libsegment_filter.so")],
+            capture_output=True, text=True).stdout
+        out["sass18"] = {}
+        for fn in re.split(r"\\n\\s*Function : ", sass)[1:]:
+            name, _, body = fn.partition("\\n")
+            if tag in name:
+                out["sass18"][anon.sub("anon", name.strip())] = hashlib.sha256(
+                    anon.sub("anon", body).encode()).hexdigest()
     rng = np.random.default_rng(cs.SEED)
     for mode, precision, fs, i16, _ in cs.MODES:
         plan = LowCut(freq=15.0, slope=10.0).plan(fs, precision=precision,
@@ -119,6 +152,16 @@ def run(other: Path, new_code: bool = False) -> list[str]:
     lines.append("outputs byte-identical in every turn ("
                  + ", ".join(turns[0]["sha"]) + "); ptxas lines "
                  + ("equal" if same else "differ (other, this)"))
+    p18 = [t["ptxas18"] for t in turns]
+    if not p18[0] or any(p != p18[0] for p in p18):
+        raise RuntimeError("the 2^18 instantiations' ptxas reports differ "
+                           f"between the turns (or none was found):\n{p18}")
+    s18 = [t["sass18"] for t in turns]
+    lines.append(f"the {len(p18[0])} kernels at B = 2^18 (512 x 512): ptxas "
+                 "reports equal in every turn; SASS "
+                 + ("not compared (no cuobjdump)" if None in s18 else
+                    "equal in every turn" if all(x == s18[0] for x in s18)
+                    else "differs between the turns"))
     return lines
 
 

@@ -14,6 +14,7 @@ is held against a derivation of its own:
 - ``no_tr`` against a float64 NumPy mirror of the kernel's three passes
   with the contiguous-tile permutation written as a loop over tiles (2e-6
   of max |ref|: the plain version's output is float32);
+- ``no_tw4`` against the same mirror with every four-step twiddle 1;
 - each in f32, f64 and 16-bit I/O (within one PCM code where the variant
   does arithmetic), with 'same' (left = Mo2) and halo-extended (left = 0)
   inputs, at a square and a non-square four-step split.
@@ -187,6 +188,57 @@ def _no_tr_mirror(x, taps, b, left, out_len):
     return y
 
 
+def _no_tw4_mirror(x, taps, b, left, out_len):
+    """Float64 NumPy mirror of the no_tw4 variant: the kernel's passes
+    (column FFT, rows bit-reversed; row FFT * H; inverse row; inverse
+    column, 1/B) with every four-step twiddle 1, positions [M, B) written."""
+    m = len(taps) - 1
+    hop = b - m
+    l1, l2 = sf.split(b)
+    n1, n2 = 1 << l1, 1 << l2
+    br1, br2 = sf._bitrev(l1), sf._bitrev(l2)
+    H = sf.spectrum_layout(taps, b)
+    c, n_in = x.shape
+    pairs = (-(-out_len // hop) + 1) // 2
+    y = np.zeros((c, out_len))
+
+    def window(ch, s):
+        idx = s + np.arange(b)
+        ok = (idx >= 0) & (idx < n_in)
+        return np.where(ok, x[ch, np.clip(idx, 0, n_in - 1)], 0.0)
+
+    for ch in range(c):
+        for k in range(pairs):
+            s0 = 2 * k * hop - left
+            z = (window(ch, s0) + 1j * window(ch, s0 + hop)).reshape(n1, n2)
+            s1 = np.fft.fft(z, axis=0)[br1]
+            s2 = np.fft.fft(s1, axis=1)[:, br2] * H
+            r = np.fft.ifft(s2[:, br2], axis=1) * n2
+            d = (np.fft.ifft(r[br1], axis=0) * n1 / b).ravel()
+            for j, part in ((2 * k, d.real), (2 * k + 1, d.imag)):
+                o = j * hop + np.arange(hop)
+                keep = o < out_len
+                y[ch, o[keep]] = part[m:][keep]
+    return y
+
+
+@pytest.mark.parametrize("mode,b,same", CASES)
+def test_no_tw4_against_a_numpy_mirror_with_unit_twiddles(mode, b, same):
+    plan, x, left, n, i16 = _case(mode, b, same)
+    want = _no_tw4_mirror(_float(x.numpy(), i16), TAPS, b, left, n)
+    y, peak = fd.segment_ablation(x, plan, left, n, "no_tw4", i16)
+    got = y.numpy().astype(np.float64)
+    if i16:
+        assert np.abs(got - _quantize(want)).max() <= 1
+    else:
+        rel = 2e-6 if mode == "f64" else 2e-5
+        assert np.abs(got - want).max() <= rel * np.abs(want).max()
+    assert float(peak) == np.abs(got).max()
+    # Without its twiddles the four-step transform is not the filter.
+    full = fd.segment_ablation(x, plan, left, n, "full", i16)[0]
+    assert not torch.equal(y, full)
+
+
 @pytest.mark.parametrize("mode,b,same", CASES)
 def test_no_tr_against_a_numpy_mirror_of_the_tile_layout(mode, b, same):
     plan, x, left, n, i16 = _case(mode, b, same)
@@ -244,7 +296,7 @@ def test_probe_segment_family_and_argtypes():
     assert args == seg_args[:-1] + [i, p]
     assert args == [p] * 8 + [i, ll, ll, ll, i, i, i, ll, i, p]
     assert fd.VARIANTS == ("full", "no_gather", "no_store", "no_tr",
-                           "rows_copy", "no_arith", "floor")
+                           "rows_copy", "no_arith", "floor", "no_tw4")
 
 
 @pytest.mark.parametrize("fn", [fd.verify, fd.run])
@@ -275,6 +327,7 @@ def test_traffic_model_counts_what_each_variant_moves():
     assert got["rows_copy"] == got["full"] - table
     assert got["no_arith"] == got["full"] - 3 * table
     assert got["floor"] == scratch + io_out
+    assert got["no_tw4"] == got["full"] - 2 * table
     i16 = fd.variant_bytes("full", plan, 2, seg, seg, i16_io=True)
     assert i16 == scratch + 2 * 2 * seg * 2 + 3 * table
 

@@ -62,19 +62,21 @@ def test_i16_plain_version_matches_jax_pallas_i16():
                 assert y.max() == 32767 or y.min() == -32768
 
 
-def _kernel_mirror(x, taps, b, left, out_len):
+def _kernel_mirror(x, taps, b, left, out_len, tw4=None):
     """Float64 NumPy mirror of csrc/segment_filter.cu's three passes: pack
     pair k's windows as x0 + i*x1, column FFT (rows left in bit-reversed
     order) * tw4, row FFT (bit-reversed) * H, inverse row, * conj(tw4),
-    inverse column, 1/B, write positions [M, B)."""
+    inverse column, 1/B, write positions [M, B). ``tw4``: the [N1, N2]
+    four-step twiddle, by default the kernel's complex128 table."""
     m = len(taps) - 1
     hop = b - m
     l1, l2 = sf.split(b)
     n1, n2 = 1 << l1, 1 << l2
     br1, br2 = sf._bitrev(l1), sf._bitrev(l2)
     H = sf.spectrum_layout(taps, b)
-    tw4, w1, w2 = (t.numpy() for t in sf.kernel_tables(
+    table, w1, w2 = (t.numpy() for t in sf.kernel_tables(
         b, torch.complex128, torch.device("cpu")))
+    tw4 = table if tw4 is None else tw4
     assert np.allclose(w1, np.exp(-2j * np.pi * np.arange(n1 // 2) / n1))
     assert np.allclose(w2, np.exp(-2j * np.pi * np.arange(n2 // 2) / n2))
     c, n_in = x.shape

@@ -156,7 +156,8 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
         asked.append(a), {"resident_ctas": 12, "ring_depth": 2})[1])
     plan = _small_plan("fast")
     x = torch.zeros((2, 50_000))
-    before = dict(sf.launches), dict(sf.kernels), dict(sf.splits)
+    before = (dict(sf.launches), dict(sf.kernels), dict(sf.splits),
+              dict(sf.twiddle_factored))
     pairs = sf.call_pairs(2, 50_000, plan.hop)
     chunks = sf.entry_chunks(pairs, sf.scratch_pairs(pairs, plan.block_size, 8))
     with spans.recording():
@@ -171,6 +172,8 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     assert {k: v for k, v in sf.kernels.items() if k != "f32"} == \
         {k: v for k, v in before[1].items() if k != "f32"}
     assert sf.splits - collections.Counter(before[2]) == {"f32 5x5": 1}
+    # A 32 x 32 complex64 table is read whole: nothing factored.
+    assert sf.twiddle_factored == before[3]
     prep, launch, outer = spans.spans()
     assert (prep["name"], launch["name"], outer["name"]) == \
         ("segment.prepare", "segment.launch", "filter")
@@ -185,7 +188,8 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     assert launch["info"] == {"chunks": chunks, "kernels": 3 * chunks,
                               "pass1_ctas": 12, "pass1_items": 4 * pairs,
                               "log_n1": 5, "log_n2": 5, "pairs": pairs,
-                              "chunk_pairs": 4, "pass1_ring": 2}
+                              "chunk_pairs": 4, "pass1_ring": 2,
+                              "twiddle_bytes": 32 * 32 * 8}
 
 
 @pytest.mark.parametrize("freq,slope,split,pairs,chunk,ring", [
@@ -195,8 +199,11 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
 def test_the_launch_span_names_the_split_it_ran(monkeypatch, freq, slope, split,
                                                 pairs, chunk, ring):
     # A CPU-built plan of a 96 kHz deployment, launched on a stand-in card:
-    # the span gives the split, the pairs and the chunk, and the ring
-    # depth pass1_occupancy reports; the counter keys the call by split.
+    # the span gives the split, the pairs and the chunk, the ring depth
+    # pass1_occupancy reports and the twiddle bytes the column passes read
+    # (the 4 MiB table at 2^18, the factor tables of 128 + 8 rows of 512
+    # complex128 at 2^19); the counters key the call by split and by its
+    # twiddle.
     entry = _FakeEntry()
     _fake_card(monkeypatch, entry)
     monkeypatch.setattr(sf, "pass1_occupancy", lambda *a: {
@@ -206,10 +213,13 @@ def test_the_launch_span_names_the_split_it_ran(monkeypatch, freq, slope, split,
     assert sf.split(plan.block_size) == split
     x = torch.zeros((2, 1_000_000))
     before = collections.Counter(sf.splits)
+    factored = sf.twiddle_factored["f64"]
     with spans.recording():
         sf._launch(x, plan, plan.mo2, x.shape[1], False)
     key = f"f64 {split[0]}x{split[1]}"
     assert sf.splits - before == {key: 1}
+    long = split == (10, 9)
+    assert sf.twiddle_factored["f64"] == factored + long
     (launch,) = [s for s in spans.spans() if s["name"] == "segment.launch"]
     info = launch["info"]
     assert (info["log_n1"], info["log_n2"]) == split
@@ -217,15 +227,22 @@ def test_the_launch_span_names_the_split_it_ran(monkeypatch, freq, slope, split,
         (pairs, chunk, ring)
     assert info["pairs"] == sf.call_pairs(2, x.shape[1], plan.hop)
     assert info["pass1_items"] == pairs * sf.pass1_tiles(plan.block_size)
+    assert info["twiddle_bytes"] == (1_114_112 if long else 4_194_304)
     assert entry.calls[0][1][-2] == chunk
+    # The table the entry point got is the one the span counted.
+    tw4 = sf.kernel_tables(plan.block_size, plan.H.dtype, plan.H.device)[0]
+    assert entry.calls[0][1][4] == tw4.data_ptr()
+    assert tw4.shape == ((136, 512) if long else (512, 512))
 
 
 def test_a_failed_launch_raises_and_counts_nothing(monkeypatch):
     _fake_card(monkeypatch, _FakeEntry(rc=700))
-    before = dict(sf.launches), dict(sf.kernels), dict(sf.splits)
+    before = (dict(sf.launches), dict(sf.kernels), dict(sf.splits),
+              dict(sf.twiddle_factored))
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         sf._launch(torch.zeros((2, 5000)), _small_plan(), 0, 4000, False)
-    assert (dict(sf.launches), dict(sf.kernels), dict(sf.splits)) == before
+    assert (dict(sf.launches), dict(sf.kernels), dict(sf.splits),
+            dict(sf.twiddle_factored)) == before
 
 
 def _wav(path, seed=3):
