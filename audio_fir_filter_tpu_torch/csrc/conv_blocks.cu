@@ -41,7 +41,7 @@ int run_split(const float* blocks, float* out, const Cx<T>* H,
               long long nb, long long chunk_pairs, cudaStream_t stream) {
   using C = Cols<T, S>;
   using RW = Rows<T, S>;
-  cudaError_t err = allow_smem<T, S>(pairs_forward<T, S>, pairs_inverse<T, S>);
+  cudaError_t err = allow_block_smem<T, S>();
   if (err != cudaSuccess) return err;
   const long long total = nb / 2;
   for (long long p0 = 0; p0 < total; p0 += chunk_pairs) {
@@ -78,7 +78,7 @@ template <typename T>
 int occupancy_of(int log_n1, int log_n2, int* out) {
   return with_split(log_n1, log_n2, [&](auto sp) {
     using S = decltype(sp);
-    cudaError_t err = allow_smem<T, S>(pairs_forward<T, S>, pairs_inverse<T, S>);
+    cudaError_t err = allow_block_smem<T, S>();
     if (err == cudaSuccess)
       err = occupancy(pairs_forward<T, S>, Cols<T, S>::kThreads,
                       Cols<T, S>::kSmem, out);

@@ -76,4 +76,12 @@ pairs_inverse(const Cx<T>* __restrict__ scratch, float* __restrict__ out,
   }
 }
 
+// The three passes' shared-memory limits at split S (allow_smem).
+template <typename T, class S>
+cudaError_t allow_block_smem() {
+  return allow_smem({{pairs_forward<T, S>, Cols<T, S>::kSmem},
+                     {rows_multiply<T, S>, Rows<T, S>::kSmem},
+                     {pairs_inverse<T, S>, Cols<T, S>::kSmem}});
+}
+
 }  // namespace

@@ -87,7 +87,11 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <initializer_list>
+#include <mutex>
+#include <set>
 #include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -609,21 +613,33 @@ __device__ __forceinline__ void cols_inverse_load(
   }
 }
 
-// Raise one kernel's dynamic shared-memory limit.
-template <typename K>
-cudaError_t smem_limit(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
+// A kernel and the dynamic shared bytes it launches with.
+struct SmemLimit {
+  const void* kernel;
+  size_t bytes;
+  template <typename K>
+  SmemLimit(K k, size_t b) : kernel((const void*)k), bytes(b) {}
+};
 
-// Raise the limits of a kernel's column passes and of rows_multiply<T, S>.
-template <typename T, class S, typename K1, typename K3>
-cudaError_t allow_smem(K1 cols_fwd, K3 cols_inv) {
-  cudaError_t err = smem_limit(cols_fwd, Cols<T, S>::kSmem);
-  if (err == cudaSuccess) err = smem_limit(rows_multiply<T, S>, Rows<T, S>::kSmem);
-  if (err == cudaSuccess) err = smem_limit(cols_inv, Cols<T, S>::kSmem);
-  return err;
+// Raise each kernel's dynamic shared-memory limit to its bytes once per
+// card (the current device's ordinal: mesh cells may sit on several); the
+// limit lasts in the card's context. A failure is returned and not
+// remembered, so the next call tries again.
+inline cudaError_t allow_smem(std::initializer_list<SmemLimit> limits) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (const SmemLimit& l : limits) {
+    if (done.count({l.kernel, dev})) continue;
+    err = cudaFuncSetAttribute(
+        l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.bytes);
+    if (err != cudaSuccess) return err;
+    done.insert({l.kernel, dev});
+  }
+  return cudaSuccess;
 }
 
 // For one kernel: [CTAs per SM, threads, dynamic shared bytes, registers

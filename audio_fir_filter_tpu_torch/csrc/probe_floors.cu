@@ -305,7 +305,7 @@ int launch_bw(const float* x, float* y, double* aux, long long steps,
               int rows, int ctas, cudaStream_t st) {
   auto kernel = bw_ring<kMode, kSplit, kStages, kStrided>;
   constexpr size_t sm = bw_smem(kStages);
-  cudaError_t err = smem_limit(kernel, sm);
+  cudaError_t err = allow_smem({{kernel, sm}});
   if (err == cudaSuccess && ctas == 0)
     err = resident_ctas(kernel, bw_threads(kMode), sm, &ctas);
   if (err != cudaSuccess) return err;
@@ -572,12 +572,12 @@ template <int kTc, bool kStrided, bool kVec>
 int tiled_copy(const float* x, float* y, Cx<float>* sc, long long pairs,
                bool rows, cudaStream_t st) {
   const size_t sm = (size_t)kTc * kSide * sizeof(Cx<float>);
-  cudaError_t err = smem_limit(cf_gather<kTc, kStrided, kVec>, sm);
-  if (err == cudaSuccess) err = smem_limit(cf_scatter<kTc, kStrided, kVec>, sm);
   using S = Split<kLog, kLog>;
   using RW = Rows<float, S>;
-  if (err == cudaSuccess)
-    err = smem_limit(rows_multiply<float, S, kRowsCopy>, RW::kSmem);
+  cudaError_t err = allow_smem({{cf_gather<kTc, kStrided, kVec>, sm},
+                                {cf_scatter<kTc, kStrided, kVec>, sm},
+                                {rows_multiply<float, S, kRowsCopy>,
+                                 RW::kSmem}});
   if (err != cudaSuccess) return err;
   const dim3 gc(kSide / kTc, (unsigned)pairs);
   cf_gather<kTc, kStrided, kVec><<<gc, kThreads, sm, st>>>(x, sc);

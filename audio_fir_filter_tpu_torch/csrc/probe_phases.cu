@@ -112,12 +112,13 @@ enum Variant {
 template <typename T, class S>
 cudaError_t allow_variants() {
   const size_t c = Cols<T, S>::kSmem, r = Rows<T, S>::kSmem;
-  cudaError_t err = allow_smem<T, S>(pairs_forward<T, S>, pairs_inverse<T, S>);
-  if (err == cudaSuccess) err = smem_limit(pairs_forward<T, S, false>, c);
-  if (err == cudaSuccess) err = smem_limit(pairs_inverse<T, S, false>, c);
-  if (err == cudaSuccess) err = smem_limit(pairs_forward<T, S, true, false>, c);
-  if (err == cudaSuccess) err = smem_limit(pairs_inverse<T, S, true, false>, c);
-  if (err == cudaSuccess) err = smem_limit(rows_multiply<T, S, kRowsForward>, r);
+  cudaError_t err = allow_block_smem<T, S>();
+  if (err == cudaSuccess)
+    err = allow_smem({{pairs_forward<T, S, false>, c},
+                      {pairs_inverse<T, S, false>, c},
+                      {pairs_forward<T, S, true, false>, c},
+                      {pairs_inverse<T, S, true, false>, c},
+                      {rows_multiply<T, S, kRowsForward>, r}});
   return err;
 }
 

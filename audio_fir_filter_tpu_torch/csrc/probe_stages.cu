@@ -528,7 +528,7 @@ int launch_ring(const Cx<T>* z, Cx<T>* out, const Cx<T>* roots,
   if (err == cudaSuccess)
     err = tile_map<T>(&omap, out, batch * kN, 2 * kN, kBoxRows, 2 * R::kW);
   int ctas = 0;
-  if (err == cudaSuccess) err = smem_limit(kernel, R::kSmem);
+  if (err == cudaSuccess) err = allow_smem({{kernel, R::kSmem}});
   if (err == cudaSuccess)
     err = resident_ctas(kernel, R::kThreads, R::kSmem, &ctas);
   if (err != cudaSuccess) return err;
@@ -570,7 +570,7 @@ template <typename T, int kT>
 int launch_transpose(const Cx<T>* z, Cx<T>* out, long long batch,
                      cudaStream_t st) {
   const size_t sm = (size_t)kT * (kT + 1) * sizeof(Cx<T>);
-  const cudaError_t err = smem_limit(transpose<T, kT>, sm);
+  const cudaError_t err = allow_smem({{transpose<T, kT>, sm}});
   if (err != cudaSuccess) return err;
   transpose<T, kT><<<dim3(kN / kT, kN / kT, (unsigned)batch), kThreads, sm,
                      st>>>(z, out);
@@ -600,7 +600,7 @@ int run(const void* zin, void* zout, const void* table, long long batch,
   if (kcase == kFwdReg) {
     using C = Cols<T, Split<kLogN, kLogN>>;
     static_assert(C::kW == kRegW, "the column passes' tile width");
-    const cudaError_t err = smem_limit(reg_chain<T>, C::kSmem);
+    const cudaError_t err = allow_smem({{reg_chain<T>, C::kSmem}});
     if (err != cudaSuccess) return err;
     reg_chain<T><<<dim3(kN / kRegW, (unsigned)batch), C::kThreads, C::kSmem,
                    st>>>(z, out, tab);
@@ -614,7 +614,7 @@ int run(const void* zin, void* zout, const void* table, long long batch,
   if (kcase == kShuffle && (param < 1 || param > 16 || param & (param - 1)))
     return cudaErrorInvalidValue;
   const size_t sm = (size_t)(kN + kN * kW) * sizeof(Cx<T>);
-  const cudaError_t err = smem_limit(stage_tile<T>, sm);
+  const cudaError_t err = allow_smem({{stage_tile<T>, sm}});
   if (err != cudaSuccess) return err;
   stage_tile<T><<<dim3(kN / kW, (unsigned)batch), kThreads, sm, st>>>(
       z, out, tab, kcase, param);

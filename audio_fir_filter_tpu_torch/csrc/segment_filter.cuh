@@ -413,10 +413,9 @@ int run_split(const IO* x, IO* y, unsigned int* pk, const Cx<T>* H,
   using C = Cols<T, S>;
   using RW = Rows<T, S>;
   using P = Pass1<T, IO, S>;
-  cudaError_t err = smem_limit(cols_forward<T, IO, S, A>, P::kSmem);
-  if (err == cudaSuccess)
-    err = smem_limit(rows_multiply<T, S, A::kRows>, RW::kSmem);
-  if (err == cudaSuccess) err = smem_limit(cols_inverse<T, IO, S, A>, C::kSmem);
+  cudaError_t err = allow_smem({{cols_forward<T, IO, S, A>, P::kSmem},
+                                {rows_multiply<T, S, A::kRows>, RW::kSmem},
+                                {cols_inverse<T, IO, S, A>, C::kSmem}});
   if (err != cudaSuccess) return err;
   for (long long p0 = 0; p0 < total; p0 += chunk_pairs) {
     const long long np = (total - p0) < chunk_pairs ? (total - p0) : chunk_pairs;
@@ -442,7 +441,7 @@ int run_split(const IO* x, IO* y, unsigned int* pk, const Cx<T>* H,
 template <typename T, typename IO, class S>
 int pass1_occupancy(int* out) {
   using P = Pass1<T, IO, S>;
-  cudaError_t err = smem_limit(cols_forward<T, IO, S, Shipped>, P::kSmem);
+  cudaError_t err = allow_smem({{cols_forward<T, IO, S, Shipped>, P::kSmem}});
   if (err == cudaSuccess)
     err = occupancy(cols_forward<T, IO, S, Shipped>, Cols<T, S>::kThreads,
                     P::kSmem, out);

@@ -71,6 +71,14 @@ FAMILIES = {
          _i, _p],
     ),
 }
+# Per kernel source: its queries of what a build holds at one split (mode
+# or precision, log_n1, log_n2, out), one signature for all.
+QUERIES = {
+    "segment_filter": ("lowcut_segment_pass1_occupancy",
+                       "lowcut_segment_twiddle_layout"),
+    "conv_blocks": ("lowcut_conv_blocks_occupancy",),
+}
+QUERY_ARGTYPES = [_i, _i, _i, _p]
 
 
 def _sources_mtime() -> float:
@@ -120,12 +128,14 @@ def build_all(force: bool = False) -> list[Path]:
 
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` with its entry points'
-    argtypes set."""
+    """The built library of ``csrc/<name>.cu`` with the argtypes of its
+    entry points and queries set."""
     lib = ctypes.CDLL(str(build(name)))
     entries, argtypes = FAMILIES[name]
-    for entry in entries:
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    for names, types in ((entries, argtypes),
+                         (QUERIES.get(name, ()), QUERY_ARGTYPES)):
+        for entry in names:
+            fn = getattr(lib, entry)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
     return lib

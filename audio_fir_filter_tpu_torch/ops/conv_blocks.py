@@ -107,8 +107,6 @@ def occupancy(b: int, precision: str) -> dict:
     from . import _build
 
     fn = _build.library("conv_blocks").lowcut_conv_blocks_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = (ctypes.c_int * 15)()
     l1, l2 = sf.split(b)
     rc = fn(l1, l2, int(precision == sf.HIGH), ctypes.addressof(out))

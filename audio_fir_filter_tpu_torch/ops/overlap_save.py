@@ -11,7 +11,9 @@ of the block with the reversed kernel is alias-free at positions [M, B),
 which are exactly out[j*L : (j+1)*L].
 
 Two precisions: ``fast`` computes in float32 (within 1 LSB @ 16-bit of the
-oracle) and ``high`` in native float64 (within 1 LSB @ 24-bit).
+oracle) and ``high`` in native float64 (within 1 LSB @ 24-bit). An int16
+input is PCM and takes the 16-bit route (:func:`takes_i16`): int16 in and
+out of the segment kernel, float32 arithmetic.
 
 Two engines, chosen by the plan (:func:`resolve_engine`):
 
@@ -236,15 +238,22 @@ def call_bytes(plan: OverlapSavePlan, channels: int, out_len: int) -> int:
 
 # ------------------------------------------------------------------ filters
 
+def takes_i16(plan: OverlapSavePlan) -> bool:
+    """Whether ``plan`` takes the 16-bit route (the segment kernel's int16
+    mode, float32 arithmetic): a ``fast`` plan of the ``pallas`` engine."""
+    return plan.engine == PALLAS and plan.precision == FAST
+
+
 def _as_input(x, plan: OverlapSavePlan) -> tuple[torch.Tensor, bool]:
-    """``(x as [C, N], whether it was [N])``, float32, contiguous, on the
-    plan's device. A tensor that already is all three passes through
-    untouched: the same tensor, no copy and no wait for the card (the
-    streamed routes upload their segments themselves, without blocking).
-    Anything else is copied there; from pageable host memory that copy
-    blocks the host."""
+    """``(x as [C, N], whether it was [N])``, float32 (int16 stays int16),
+    contiguous, on the plan's device. A tensor that already is all three
+    passes through untouched: the same tensor, no copy and no wait for the
+    card (the streamed routes upload their segments themselves, without
+    blocking). Anything else is copied there; from pageable host memory
+    that copy blocks the host."""
     x = torch.as_tensor(x)
-    x = x.to(device=plan.device, dtype=torch.float32).contiguous()
+    dtype = torch.int16 if x.dtype == torch.int16 else torch.float32
+    x = x.to(device=plan.device, dtype=dtype).contiguous()
     squeeze = x.dim() == 1
     return (x[None, :] if squeeze else x), squeeze
 
@@ -285,8 +294,12 @@ def _block_filter_peak(x: torch.Tensor, plan: OverlapSavePlan, left: int,
 
 def _filter_peak(x: torch.Tensor, plan: OverlapSavePlan, left: int,
                  out_len: int):
+    i16 = x.dtype == torch.int16
+    if i16 and not takes_i16(plan):
+        raise ValueError("int16 input needs a 'fast' plan of the 'pallas' "
+                         f"engine, got {plan.engine!r}, {plan.precision!r}")
     if plan.engine == PALLAS:
-        return sf.segment_filter(x, plan, left, out_len)
+        return sf.segment_filter(x, plan, left, out_len, i16_io=i16)
     return _block_filter_peak(x, plan, left, out_len)
 
 
@@ -306,7 +319,8 @@ def _filter(x, plan: OverlapSavePlan, left: int, out_len: int | None):
 
 def same_filter_peak(x, plan: OverlapSavePlan):
     """Filter [N] or [C, N] with 'same' semantics; returns (y float32 on the
-    plan's device, peak max|y| as a 0-d tensor)."""
+    plan's device, peak max|y| as a 0-d tensor). An int16 ``x`` takes the
+    16-bit route (:func:`takes_i16`): y int16 PCM, the peak in PCM codes."""
     return _filter(x, plan, plan.mo2, None)
 
 
@@ -315,7 +329,8 @@ def extended_filter_peak(xe, plan: OverlapSavePlan, out_len: int):
     | right Mo2]; returns (out[0:out_len] of the body, its peak). The
     primitive of host-side segmentation: halos replace the zero padding
     except at the true signal edges. The peak covers only the ``out_len``
-    returned samples, so a short last segment needs no host re-scan."""
+    returned samples, so a short last segment needs no host re-scan. An
+    int16 ``xe`` takes the 16-bit route, as in :func:`same_filter_peak`."""
     return _filter(xe, plan, 0, out_len)
 
 

@@ -15,14 +15,14 @@ import math
 
 from .segment_filter import FAST, HIGH
 
-# NVIDIA's H100 SXM data sheet: the HBM3 rate, the float32 peak outside the
-# tensor cores, and the float64 peak through the FP64 (DMMA) tensor cores,
-# which are full IEEE float64 -- the larger of the sheet's two float64
-# rates (34 TFLOP/s outside them). ``high`` computes in float64 on the card.
+# NVIDIA's H100 SXM data sheet: the HBM3 rate and the float32 and float64
+# peaks outside the tensor cores. ``high`` computes in float64 on the card,
+# and ``csrc/`` issues no tensor-core instruction, so the FP64 tensor
+# cores' 67 TFLOP/s is not a rate its kernels can reach.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {FAST: 67e12, HIGH: 67e12}
+PEAK_FLOPS = {FAST: 67e12, HIGH: 34e12}
 PEAK_NAMES = {FAST: "f32 outside the tensor cores",
-              HIGH: "f64 through the FP64 tensor cores"}
+              HIGH: "f64 outside the tensor cores"}
 
 
 def fft_conv_flops(b: int, blocks: float) -> float:

@@ -23,7 +23,6 @@ no counterpart here, so one qualifier serves every mode.
 
 from __future__ import annotations
 
-import collections
 import functools
 
 import numpy as np
@@ -37,19 +36,14 @@ HIGH = "high"
 
 # Per mode, counted by :func:`segment_filter` where it calls the C entry
 # point and nowhere else (chip_smoke.py reads them to show the main path
-# went through the kernel): ``launches``, the calls of the C entry point
-# (one a call on the card), and ``kernels``, the kernels those calls
-# issued, KERNELS_PER_CHUNK for each scratch chunk of the entry's loop
-# (``run_split`` in ``csrc/segment_filter.cuh``), reckoned on the host
-# from the same chunking (:func:`entry_chunks` of :func:`scratch_pairs`);
-# ``splits``, the same calls by ``"<mode> <log2 N1>x<log2 N2>"``, the
-# four-step split (:func:`split`) each ran at; ``twiddle_factored``, the
-# calls whose column passes took the factored twiddle tables
-# (:func:`twiddle_layout`).
+# went through the kernel, bench.py to gate its launches): ``launches``,
+# the calls of the C entry point (one a call on the card), and
+# ``kernels``, the kernels those calls issued, KERNELS_PER_CHUNK for each
+# scratch chunk of the entry's loop (``run_split`` in
+# ``csrc/segment_filter.cuh``), reckoned on the host from the same
+# chunking (:func:`entry_chunks` of :func:`scratch_pairs`).
 launches = {"f32": 0, "f64": 0, "i16": 0}
 kernels = {"f32": 0, "f64": 0, "i16": 0}
-splits: collections.Counter = collections.Counter()
-twiddle_factored = {"f32": 0, "f64": 0, "i16": 0}
 
 # Kernels the C entry point issues per scratch chunk: its three passes.
 KERNELS_PER_CHUNK = 3
@@ -88,14 +82,6 @@ def call_pairs(channels: int, out_len: int, hop: int) -> int:
     return channels * ((-(-out_len // hop) + 1) // 2)
 
 
-def pass1_tiles(b: int) -> int:
-    """Column tiles of one pair in the column passes: N2 / W, W columns a
-    tile (``fourstep.cuh`` ``Split::kTc``: 8, fewer above 512-point columns
-    so that a CTA has at most 512 threads, 1024 at 2^13)."""
-    l1, l2 = split(b)
-    return (1 << l2) // min(max(4096 >> l1, 1), 8, 1 << l2)
-
-
 _PASS1_KEYS = ("ctas_per_sm", "threads", "smem_bytes", "registers",
                "local_bytes", "ring_depth", "tiles", "resident_ctas")
 # The C entry points' mode ids.
@@ -116,8 +102,6 @@ def pass1_occupancy(mode: str, b: int, device_index: int = 0) -> dict:
     from . import _build
 
     fn = _build.library("segment_filter").lowcut_segment_pass1_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(_PASS1_KEYS))()
     with torch.cuda.device(device_index):
         rc = fn(_MODE_IDS[mode], *split(b), ctypes.addressof(out))
@@ -231,8 +215,6 @@ def library_twiddle_layout(mode: str, b: int) -> dict:
     from . import _build
 
     fn = _build.library("segment_filter").lowcut_segment_twiddle_layout
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * len(_TWIDDLE_KEYS))()
     rc = fn(_MODE_IDS[mode], *split(b), ctypes.addressof(out))
     if rc != 0:
@@ -392,10 +374,6 @@ def _launch(x, plan, left, out_len, i16_io):
         kernels[mode] += run_entry("segment_filter", f"lowcut_segment_filter_{mode}",
                                    x, y, peak, plan, left, out_len, prep=prep)
     launches[mode] += 1
-    l1, l2 = split(plan.block_size)
-    splits[f"{mode} {l1}x{l2}"] += 1
-    if twiddle_layout(plan.block_size, plan.H.dtype)["factored"]:
-        twiddle_factored[mode] += 1
     return y, peak
 
 
@@ -407,12 +385,10 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     (``csrc/probe_segment.cu``, which adds a variant id). ``prep``, the
     caller's open ``segment.prepare`` span, gets the scratch bytes and ends
     here; the entry point is called in the span ``segment.launch``, which
-    gets the chunks, the kernels, pass 1's grid (``pass1_ctas``, of the
-    first chunk), the (pair, column tile) items its CTAs walk
-    (``pass1_items``, all chunks), the split (``log_n1``, ``log_n2``), the
-    pairs the call filters (``pairs``) and a chunk holds (``chunk_pairs``),
-    pass 1's ring depth (``pass1_ring``, 0 without a ring) and the bytes
-    of twiddle table the column passes read a pair (``twiddle_bytes``).
+    gets what the host decided: the chunks, the kernels, the split
+    (``log_n1``, ``log_n2``), the pairs the call filters (``pairs``) and a
+    chunk holds (``chunk_pairs``); and what the library reports: pass 1's
+    ring depth (``pass1_ring``, 0 without a ring; :func:`pass1_occupancy`).
     Returns the kernels it launched; raises if the launch failed."""
     from . import _build
 
@@ -434,17 +410,10 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     prep.end()
     with spans.span("segment.launch") as s, torch.cuda.device(dev):
         if s:
-            tiles = pass1_tiles(b)
             occ = pass1_occupancy(entry.rsplit("_", 1)[1], b, dev.index or 0)
-            # pass1_grid: one CTA an item without a ring, else at most the
-            # resident CTAs.
-            ctas = chunk * tiles
-            if occ["ring_depth"]:
-                ctas = min(ctas, occ["resident_ctas"])
             s.set(chunks=chunks, kernels=KERNELS_PER_CHUNK * chunks,
-                  pass1_ctas=ctas, pass1_items=pairs * tiles, log_n1=l1,
-                  log_n2=l2, pairs=pairs, chunk_pairs=chunk,
-                  pass1_ring=occ["ring_depth"], twiddle_bytes=tw4.nbytes)
+                  log_n1=l1, log_n2=l2, pairs=pairs, chunk_pairs=chunk,
+                  pass1_ring=occ["ring_depth"])
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), peak.data_ptr(), H.data_ptr(),
                 tw4.data_ptr(), w1.data_ptr(), w2.data_ptr(),

@@ -32,7 +32,7 @@ from .. import audio
 from ..audio.file import _scale_common
 from ..audio.format import Encoding
 from ..models import make_model
-from ..ops import segment_filter as sf
+from ..ops import overlap_save as osv
 from ..parallel.mesh import local_devices, make_mesh
 from ..utils import spans
 from ..utils.options import FilterOptions, resolve_precision
@@ -51,16 +51,13 @@ def stage(t: dict, name: str):
     t[name] = s.seconds
 
 
-def _use_i16_route(opts, precision: str, plan, data) -> bool:
-    """The 16-bit-native route applies when it is exact: ``fast``
-    precision, a 16-bit PCM source (its float32 decode is an exact int16
-    round trip), no explicit normalize, the segment kernel's engine and a
-    shape it takes."""
-    return (precision == "fast"
+def _use_i16_route(opts, plan, data) -> bool:
+    """The 16-bit-native route applies when it is exact: a plan that takes
+    it (:func:`..ops.overlap_save.takes_i16`), a 16-bit PCM source (an
+    exact int16 round trip) and no explicit normalize."""
+    return (osv.takes_i16(plan)
             and not opts.normalize
-            and data.fmt.encoding == Encoding.PCM_16
-            and plan.engine == "pallas"
-            and sf.qualifies(plan.num_taps, plan.block_size))
+            and data.fmt.encoding == Encoding.PCM_16)
 
 
 def design_plan(model, data, opts: FilterOptions, device, show_status):
@@ -93,7 +90,7 @@ def filter_and_normalize(data, plan, precision: str, opts: FilterOptions,
                              local_devices(plan.device, rows * cols))
             filtered, max_mag = sharded_filter_streamed(
                 data.samples, plan, mesh, progress_cb=bar.update)
-        elif _use_i16_route(opts, precision, plan, data):
+        elif _use_i16_route(opts, plan, data):
             x16 = np.asarray(data.samples * np.float32(32768.0), np.int16)
             y16, peak16, saturated = filter_array_streamed_i16(
                 x16, plan, progress_cb=bar.update)

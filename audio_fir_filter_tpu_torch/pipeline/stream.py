@@ -34,7 +34,6 @@ import numpy as np
 import torch
 
 from ..ops import overlap_save as osv
-from ..ops import segment_filter as sf
 from ..parallel import sharded_conv
 from ..parallel.distributed import process_info
 
@@ -147,6 +146,38 @@ def _pipelined(segments, dispatch, out: np.ndarray, device: torch.device,
     return peak
 
 
+def _streamed(x: np.ndarray, plan: osv.OverlapSavePlan, segment_len: int,
+              progress_cb) -> tuple[np.ndarray, float]:
+    """(y, peak) of planar [C, N] (or [N]) ``x``, float32 or int16 PCM (the
+    filters take the 16-bit route by the dtype): one segment in one
+    synchronous ``same_filter_peak`` (the kernel pads the edges), more as
+    halo'd segments through ``extended_filter_peak`` in :func:`_pipelined`."""
+    if x.ndim == 1:
+        y, peak = _streamed(x[None, :], plan, segment_len, progress_cb)
+        return y[0], peak
+    c, n = x.shape
+    if n == 0:
+        return x.copy(), 0.0
+    seg = segment_len or default_segment_len(plan, channels=c)
+    if n <= seg:
+        y, peak = osv.same_filter_peak(_to_device(x, plan.device), plan)
+        if progress_cb:
+            progress_cb(c * n)
+        return y.cpu().numpy(), float(peak)
+
+    mo2 = plan.mo2
+    dtype = torch.int16 if x.dtype == np.int16 else torch.float32
+
+    def dispatch(s, e, buffer):
+        xe = _stage(buffer("x", (c, e - s + 2 * mo2), dtype), x, s - mo2)
+        return osv.extended_filter_peak(_upload(xe, plan.device), plan, e - s)
+
+    out = np.empty((c, n), dtype=x.dtype)
+    peak = _pipelined(_segments(n, seg), dispatch, out, plan.device,
+                      progress_cb)
+    return out, peak
+
+
 def filter_array_streamed(
     x: np.ndarray,
     plan: osv.OverlapSavePlan,
@@ -160,32 +191,8 @@ def filter_array_streamed(
     kernel. ``progress_cb(num_samples)`` is called per finished segment
     with C * segment frames.
     """
-    if x.ndim == 1:
-        y, peak = filter_array_streamed(x[None, :], plan, segment_len,
-                                        progress_cb)
-        return y[0], peak
-    x = np.asarray(x, dtype=np.float32)
-    c, n = x.shape
-    if n == 0:
-        return x.copy(), 0.0
-    seg = segment_len or default_segment_len(plan, channels=c)
-    if n <= seg:
-        # Single segment: the edge zero padding happens inside the kernel.
-        y, peak = osv.same_filter_peak(_to_device(x, plan.device), plan)
-        if progress_cb:
-            progress_cb(c * n)
-        return y.cpu().numpy(), float(peak)
-
-    mo2 = plan.mo2
-
-    def dispatch(s, e, buffer):
-        xe = _stage(buffer("x", (c, e - s + 2 * mo2), torch.float32), x, s - mo2)
-        return osv.extended_filter_peak(_upload(xe, plan.device), plan, e - s)
-
-    out = np.empty((c, n), dtype=np.float32)
-    peak = _pipelined(_segments(n, seg), dispatch, out, plan.device,
-                      progress_cb)
-    return out, peak
+    return _streamed(np.asarray(x, dtype=np.float32), plan, segment_len,
+                     progress_cb)
 
 
 def filter_array_streamed_i16(
@@ -201,40 +208,16 @@ def filter_array_streamed_i16(
     code| and ``saturated`` is True when an output reached the int16 rails
     (quantization may have clipped; the caller redoes the file in float32
     to honour normalize-on-clip). Raises ValueError for a plan the kernel's
-    16-bit mode does not take (it needs a 'fast' plan of the segment
-    kernel's engine, ``pallas``, and a qualifying shape)."""
-    if (plan.engine != osv.PALLAS or plan.precision != osv.FAST
-            or not sf.qualifies(plan.num_taps, plan.block_size)):
-        raise ValueError(
-            "16-bit-native filtering needs a 'fast' plan of the 'pallas' "
-            f"engine that the segment filter takes; got engine={plan.engine!r}, "
-            f"precision={plan.precision!r}, num_taps={plan.num_taps}, "
-            f"B={plan.block_size}")
-    if x16.ndim == 1:
-        y, p, sat = filter_array_streamed_i16(x16[None, :], plan,
-                                              segment_len, progress_cb)
-        return y[0], p, sat
+    16-bit mode does not take (:func:`..ops.overlap_save.takes_i16`: a
+    'fast' plan of the segment kernel's engine, ``pallas``)."""
+    if not osv.takes_i16(plan):
+        raise ValueError("16-bit-native filtering needs a 'fast' plan of the "
+                         f"'pallas' engine; got engine={plan.engine!r}, "
+                         f"precision={plan.precision!r}")
     if x16.dtype != np.int16:
         raise TypeError(f"expected int16 PCM, got {x16.dtype}")
-    c, n = x16.shape
-    if n == 0:
-        return x16.copy(), 0, False
-
-    seg = segment_len or default_segment_len(plan, channels=c)
-    mo2 = plan.mo2
-
-    def dispatch(s, e, buffer):
-        # One segment is the whole signal: the kernel pads its edges.
-        left = mo2 if (s, e) == (0, n) else 0
-        g0, g1 = s - mo2 + left, e + mo2 - left
-        xe = _stage(buffer("x", (c, g1 - g0), torch.int16), x16, g0)
-        return sf.segment_filter(_upload(xe, plan.device), plan, left, e - s,
-                                 i16_io=True)
-
-    out = np.empty((c, n), dtype=np.int16)
-    peak = int(_pipelined(_segments(n, seg), dispatch, out, plan.device,
-                          progress_cb))
-    return out, peak, peak >= 32767
+    out, peak = _streamed(x16, plan, segment_len, progress_cb)
+    return out, int(peak), peak >= 32767
 
 
 def sharded_filter_streamed(

@@ -28,7 +28,7 @@ result line):
    ``kernel_tables``' rule disagree at any B = 2^2 .. 2^26; the long
    filter at 1024 x 512 in f64 (factored twiddle): the segment kernel
    through ``same_filter_peak`` and the block kernel against their plain
-   versions within 1 LSB@24, the call counted by ``twiddle_factored``;
+   versions within 1 LSB@24, the call's launch span at 10x9;
 4. a float64 direct-convolution oracle on excerpts (head, a block seam,
    tail) of the phase-3 kernel outputs; then kernel vs plain version at
    small edge shapes (B 256-2048, 1-3 channels, halo-extended input), and
@@ -46,10 +46,11 @@ result line):
    segments), (b) a 5-minute 44.1 kHz stereo 16-bit WAV (the 16-bit-native
    route), (c) a loud 16-bit WAV that saturates, falls back to float32 and
    auto-normalizes. Launch counters are zeroed before (a) and read after
-   (c); every segment-kernel mode must have launched, none with the
-   factored twiddle; then (a) with the long filter (``-f 10 -s 5``,
-   B = 2^19): every launch f64 at 10x9 and counted by
-   ``twiddle_factored``, oracle excerpts within 1 LSB@24;
+   (c), the launch spans recorded; every segment-kernel mode must have
+   launched, one span a launch, none at a split whose twiddle is
+   factored (``twiddle_layout``); then (a) with the long filter (``-f 10
+   -s 5``, B = 2^19): every launch f64, its span at 10x9, where the
+   twiddle is factored, oracle excerpts within 1 LSB@24;
 7. the block path through the CLI, ``--engine fourstep``, on files (a)
    and (b): oracle excerpts, metadata, no 16-bit route; counters zeroed
    before and read after, both block-kernel modes must have launched and
@@ -383,9 +384,6 @@ def _zero_counts() -> None:
                    *(m.launches for m in _probe_modules())):
         for k in counts:
             counts[k] = 0
-    sf.splits.clear()
-    for k in sf.twiddle_factored:
-        sf.twiddle_factored[k] = 0
 
 
 def _counts() -> dict:
@@ -584,17 +582,26 @@ def _twiddle_rows() -> None:
             + "; the library's rule agrees at B = 2^2 .. 2^26")
 
 
+def _launch_splits() -> list:
+    """(log_n1, log_n2) of each recorded ``segment.launch`` span, oldest
+    first."""
+    from audio_fir_filter_tpu_torch.utils import spans
+
+    return [(s["info"]["log_n1"], s["info"]["log_n2"]) for s in spans.spans()
+            if s["name"] == "segment.launch"]
+
+
 def _long_split_kernels() -> None:
     """The long filter's split, 1024 x 512 in f64 (M = 76,800 at 96 kHz,
     B = 2^19), where the column passes take the factored twiddle: the
     segment kernel through ``same_filter_peak`` on 2 x 30 s and the block
     kernel on 4 blocks, each against its plain version within the
-    ``high`` gate (1 LSB@24); the segment call counted by
-    ``twiddle_factored``."""
+    ``high`` gate (1 LSB@24); the segment call's launch span at 10x9."""
     from audio_fir_filter_tpu_torch.models import LowCut
     from audio_fir_filter_tpu_torch.ops import conv_blocks as cb
     from audio_fir_filter_tpu_torch.ops import overlap_save as osv
     from audio_fir_filter_tpu_torch.ops import segment_filter as sf
+    from audio_fir_filter_tpu_torch.utils import spans
 
     rng = np.random.default_rng(SEED + 7)
     model = LowCut(freq=10.0, slope=5.0)
@@ -604,12 +611,13 @@ def _long_split_kernels() -> None:
     check(sf.twiddle_layout(plan.block_size, plan.H.dtype)["factored"],
           "long filter: the twiddle is not factored")
     x = torch.from_numpy(_signal(96000.0, 30.0, rng)).cuda()
-    before = sf.launches["f64"], sf.twiddle_factored["f64"]
-    y, pk = osv.same_filter_peak(x, plan)
-    check((sf.launches["f64"], sf.twiddle_factored["f64"])
-          == (before[0] + 1, before[1] + 1),
-          f"long filter: launches {before[0]} -> {sf.launches['f64']}, "
-          f"twiddle_factored {before[1]} -> {sf.twiddle_factored['f64']}")
+    before = sf.launches["f64"]
+    spans.clear()
+    with spans.recording():
+        y, pk = osv.same_filter_peak(x, plan)
+    check(sf.launches["f64"] == before + 1 and _launch_splits() == [(10, 9)],
+          f"long filter: launches {before} -> {sf.launches['f64']}, launch "
+          f"spans at {_launch_splits()}")
     yp, _ = sf.reference(x, plan, plan.mo2, x.shape[1])
     a = y.cpu().numpy().astype(np.float64)
     err = scaled_lsb_error(a, yp.cpu().numpy().astype(np.float64), 24)
@@ -628,7 +636,7 @@ def _long_split_kernels() -> None:
     torch.cuda.empty_cache()
     print(f"long filter (M = {plan.m}, B = 2^19, 1024 x 512, f64, factored "
           f"twiddle): segment kernel vs plain {err:.4f} LSB@24 (2 x 30 s, "
-          f"counted by twiddle_factored), block kernel vs plain {berr:.4f} "
+          f"its launch at 10x9), block kernel vs plain {berr:.4f} "
           "LSB@24 (4 blocks)")
 
 
@@ -984,19 +992,23 @@ def phase_main_path(card: str, files: dict) -> dict:
     from audio_fir_filter_tpu_torch.models import LowCut
     from audio_fir_filter_tpu_torch.ops import segment_filter as sf
     from audio_fir_filter_tpu_torch.pipeline.stream import default_segment_len
+    from audio_fir_filter_tpu_torch.utils import spans
 
     single = {}
     _zero_counts()
-    for tag in "abc":
-        out = _out(files[tag], "out")
-        m, wall, made = _timed_cli([str(files[tag]), str(out)])
-        single[tag] = (out, wall, made, m)
+    spans.clear()
+    with spans.recording():
+        for tag in "abc":
+            out = _out(files[tag], "out")
+            m, wall, made = _timed_cli([str(files[tag]), str(out)])
+            single[tag] = (out, wall, made, m)
     counts = _counts()
+    got = _launch_splits()
+    splits = {f"{a}x{b}": got.count((a, b)) for a, b in sorted(set(got))}
     print(f"main-path launches: {counts}; segment kernel calls by split: "
-          f"{dict(sf.splits)}")
-    for mode, n in sf.launches.items():
-        by_split = sum(v for k, v in sf.splits.items() if k.split()[0] == mode)
-        check(by_split == n, f"{mode}: {n} launches, {by_split} by split")
+          f"{splits}")
+    n = sum(sf.launches.values())
+    check(len(got) == n, f"{n} launches, {splits} launch spans")
     for k, v in counts.items():
         if k.startswith("segment_filter_"):
             check(v > 0, f"kernel {k} never launched on the main path")
@@ -1040,23 +1052,30 @@ def phase_main_path(card: str, files: dict) -> dict:
 
     # (a) again with the long filter (-f 10 -s 5: M = 76,800, B = 2^19):
     # the f64 kernel at the 1024 x 512 split, whose column passes take the
-    # factored twiddle; the default runs above took none.
-    check(not any(sf.twiddle_factored.values()),
-          f"the default runs took the factored twiddle: {sf.twiddle_factored}")
+    # factored twiddle; the default runs above took none (complex128 is
+    # factored from the smallest B).
+    def factored(split):
+        return sf.twiddle_layout(1 << sum(split), torch.complex128)["factored"]
+
+    check(not any(map(factored, got)),
+          f"the default runs took the factored twiddle: {splits}")
     _zero_counts()
+    spans.clear()
     long_out = _out(files["a"], "long")
-    ml, _, _ = _timed_cli([str(files["a"]), str(long_out), "-f", "10", "-s", "5"])
+    with spans.recording():
+        ml, _, _ = _timed_cli([str(files["a"]), str(long_out), "-f", "10",
+                               "-s", "5"])
     n = sf.launches["f64"]
-    check(n > 0 and sf.twiddle_factored == {"f32": 0, "f64": n, "i16": 0}
-          and dict(sf.splits) == {"f64 10x9": n},
-          f"(a long) {n} f64 launches, by split {dict(sf.splits)}, "
-          f"twiddle_factored {sf.twiddle_factored}")
+    check(n > 0 and sum(sf.launches.values()) == n
+          and _launch_splits() == [(10, 9)] * n and factored((10, 9)),
+          f"(a long) {n} f64 launches of {dict(sf.launches)}, launch spans "
+          f"at {sorted(set(_launch_splits()))}")
     long96 = LowCut(freq=10.0, slope=5.0)
     plan_long = long96.plan(96000.0, precision="high", device="cuda")
     err_l = _file_excerpts(files["a"], long_out, long96.taps(96000.0),
                            default_segment_len(plan_long, channels=2), 24)
     print(f"(a long) -f 10 -s 5, M={plan_long.m}, B={plan_long.block_size}: "
-          f"{n} f64 launches, all at 10x9 and counted by twiddle_factored; "
+          f"{n} f64 launches, all at 10x9 with the factored twiddle; "
           f"excerpts {err_l:.4f} LSB@24")
     check(err_l <= 1.0, f"(a long) excerpt error {err_l} LSB@24 > 1")
     _print_stages("a long", ml, card)

@@ -16,6 +16,7 @@ from audio_fir_filter_tpu_torch.ops import overlap_save as osv
 from audio_fir_filter_tpu_torch.ops import segment_filter as sf
 from cardbench import inputs
 from cardbench.reference import convolve, design
+from test_torch_pass1_ring import Pass1
 
 FS = 96000.0
 FREQ, SLOPE = 10.0, 5.0
@@ -40,7 +41,7 @@ def test_the_plan_is_the_long_split(plan):
     assert sf.split_shape(plan.block_size) == tuple(plan.H.shape) == (1024, 512)
     assert sf.qualifies(plan.num_taps, plan.block_size)
     # Pass 1: 512 columns in tiles of 4 (1024-point columns, 512 threads).
-    assert sf.pass1_tiles(plan.block_size) == 128
+    assert Pass1("f64", *sf.split(plan.block_size)).tiles == 128
 
 
 def test_the_hour_walks_25_chunks_of_32_pairs(plan):

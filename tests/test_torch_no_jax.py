@@ -7,8 +7,11 @@ through the CLI and a ``--resume`` batch, imports every module of
 bench at a tiny size, and imports every module of ``audio_fir_filter_tpu_torch.experiments``
 and runs one plain version of each probe, the segment ablations and the
 breakdown scripts (the batch script writes its inputs). A static check reads every file of the
-port, chip_smoke.py and segment_ab.py for an import of the JAX package."""
+port, chip_smoke.py and segment_ab.py for an import of the JAX package,
+and another every module of ``pipeline/`` and ``parallel/`` for an import
+of the segment kernel's wrapper (they reach it through ``overlap_save``)."""
 
+import ast
 import re
 import subprocess
 import sys
@@ -122,3 +125,37 @@ def test_no_file_of_the_port_imports_the_jax_package():
     assert _JAX_PACKAGE_IMPORT.search("import audio_fir_filter_tpu.audio")
     assert not _JAX_PACKAGE_IMPORT.search("from audio_fir_filter_tpu_torch import a")
     assert not _JAX_PACKAGE_IMPORT.search("import audio_fir_filter_tpu_torch")
+
+
+def _imports_segment_wrapper(source: str) -> list[str]:
+    """The imports in ``source`` that bind ``ops.segment_filter``."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.ImportFrom):
+            mod = node.module or ""
+            if mod.split(".")[-1] == "segment_filter" or (
+                    mod.split(".")[-1] == "ops"
+                    and any(a.name == "segment_filter" for a in node.names)):
+                found.append(f"{'.' * node.level}{mod}")
+        elif isinstance(node, ast.Import):
+            found += [a.name for a in node.names
+                      if a.name.endswith("ops.segment_filter")]
+    return found
+
+
+def test_pipeline_and_parallel_reach_the_kernels_through_overlap_save():
+    port = REPO / "audio_fir_filter_tpu_torch"
+    files = sorted([*(port / "pipeline").rglob("*.py"),
+                    *(port / "parallel").rglob("*.py")])
+    assert len(files) >= 8
+    bad = {str(f.relative_to(REPO)): got for f in files
+           if (got := _imports_segment_wrapper(f.read_text()))}
+    assert bad == {}
+    # The scan does catch each way of writing the import.
+    for line in ("from ..ops import segment_filter as sf",
+                 "from ..ops import (overlap_save,\n    segment_filter)",
+                 "from ..ops.segment_filter import qualifies",
+                 "from audio_fir_filter_tpu_torch.ops import segment_filter",
+                 "import audio_fir_filter_tpu_torch.ops.segment_filter"):
+        assert _imports_segment_wrapper(line), line
+    assert not _imports_segment_wrapper("from ..ops import overlap_save as osv")

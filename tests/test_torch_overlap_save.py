@@ -18,6 +18,7 @@ from audio_fir_filter_tpu.ops import kernel_design as kd
 from audio_fir_filter_tpu.ops import oracle
 from audio_fir_filter_tpu.ops import overlap_save as josv
 from audio_fir_filter_tpu_torch.ops import overlap_save as osv
+from audio_fir_filter_tpu_torch.ops import segment_filter as sf
 
 from util import high_tol_lsb24
 
@@ -186,3 +187,39 @@ def test_port_matches_jax_pallas_segment_kernel(precision, bits):
     assert oracle.max_lsb_error(yt, yj, bits=bits) <= tol
     with pytest.raises(ValueError):
         osv.plan_from_jax(jplan, taps[1:-1], CPU)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_int16_input_takes_the_16bit_route(channels):
+    """An int16 tensor through the filters is the segment kernel's 16-bit
+    mode, bit for bit: 'same' framing, halo'd framing and an [N] input."""
+    ws = kd.WindowedSinc(0.05, 0.02).make_low_cut()
+    plan = osv.make_plan(ws.taps, "fast", 1024, CPU)
+    assert osv.takes_i16(plan)
+    rng = np.random.default_rng(channels)
+    x16 = torch.from_numpy(np.rint(rng.uniform(-0.7, 0.7, (channels, 5000))
+                                   * 32768).astype(np.int16))
+    y, peak = osv.same_filter_peak(x16, plan)
+    want, want_peak = sf.segment_filter(x16, plan, plan.mo2, 5000, i16_io=True)
+    assert y.dtype == torch.int16 and torch.equal(y, want)
+    assert torch.equal(peak, want_peak) and float(peak) > 0
+    xe = x16[:, 1000 : 3000 + plan.m].contiguous()
+    y, peak = osv.extended_filter_peak(xe, plan, 2000)
+    want, want_peak = sf.segment_filter(xe, plan, 0, 2000, i16_io=True)
+    assert torch.equal(y, want) and torch.equal(peak, want_peak)
+    one, _ = osv.same_filter_peak(x16[0].numpy(), plan)
+    assert torch.equal(one, sf.segment_filter(x16[:1].contiguous(), plan,
+                                              plan.mo2, 5000, i16_io=True)[0][0])
+
+
+@pytest.mark.parametrize("precision,engine", [("high", "auto"),
+                                              ("fast", "fourstep")])
+def test_int16_input_needs_a_plan_of_the_16bit_route(precision, engine):
+    ws = kd.WindowedSinc(0.05, 0.02).make_low_cut()
+    plan = osv.make_plan(ws.taps, precision, 1024, CPU, engine=engine)
+    assert not osv.takes_i16(plan)
+    with pytest.raises(ValueError, match="'fast' plan of the 'pallas'"):
+        osv.same_filter_peak(torch.zeros((2, 3000), dtype=torch.int16), plan)
+    with pytest.raises(ValueError, match="'fast' plan of the 'pallas'"):
+        osv.extended_filter_peak(
+            torch.zeros((2, 3000 + plan.m), dtype=torch.int16), plan, 3000)

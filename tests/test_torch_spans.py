@@ -4,7 +4,6 @@ profiler, the bounded store, the spans of the segment wrapper and of the
 pipeline's stages, and the kernels a segment call issues (shape
 arithmetic, no card)."""
 
-import collections
 import contextlib
 import json
 import sys
@@ -22,8 +21,10 @@ from audio_fir_filter_tpu_torch.ops import _build
 from audio_fir_filter_tpu_torch.ops import overlap_save as osv
 from audio_fir_filter_tpu_torch.ops import segment_filter as sf
 from audio_fir_filter_tpu_torch.pipeline import process_file
+from audio_fir_filter_tpu_torch.pipeline.stream import filter_array_streamed_i16
 from audio_fir_filter_tpu_torch.utils import spans
 from audio_fir_filter_tpu_torch.utils.options import FilterOptions
+from test_torch_pass1_ring import Pass1
 
 STAGES = ("read", "design", "filter", "normalize", "write")
 
@@ -156,8 +157,7 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
         asked.append(a), {"resident_ctas": 12, "ring_depth": 2})[1])
     plan = _small_plan("fast")
     x = torch.zeros((2, 50_000))
-    before = (dict(sf.launches), dict(sf.kernels), dict(sf.splits),
-              dict(sf.twiddle_factored))
+    before = (dict(sf.launches), dict(sf.kernels))
     pairs = sf.call_pairs(2, 50_000, plan.hop)
     chunks = sf.entry_chunks(pairs, sf.scratch_pairs(pairs, plan.block_size, 8))
     with spans.recording():
@@ -171,9 +171,8 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     assert sf.kernels["f32"] == before[1]["f32"] + 3 * chunks
     assert {k: v for k, v in sf.kernels.items() if k != "f32"} == \
         {k: v for k, v in before[1].items() if k != "f32"}
-    assert sf.splits - collections.Counter(before[2]) == {"f32 5x5": 1}
     # A 32 x 32 complex64 table is read whole: nothing factored.
-    assert sf.twiddle_factored == before[3]
+    assert not sf.twiddle_layout(plan.block_size, plan.H.dtype)["factored"]
     prep, launch, outer = spans.spans()
     assert (prep["name"], launch["name"], outer["name"]) == \
         ("segment.prepare", "segment.launch", "filter")
@@ -181,15 +180,32 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     assert prep["call"] == launch["call"] == outer["id"]
     assert prep["t1_ns"] <= launch["t0_ns"]
     assert prep["info"] == {"scratch_bytes": args[-2] * plan.block_size * 8}
-    # B = 1024 is 32 x 32: 4 tiles of 8 columns a pair; a ring's grid is
-    # the first chunk's 16 items cut to the 12 resident CTAs.
-    assert sf.pass1_tiles(plan.block_size) == 4
+    # B = 1024 is 32 x 32: pass 1 walks 4 tiles of 8 columns a pair and
+    # cuts its grid to the resident CTAs, which the library reckons; the
+    # span carries the split and the ring depth the library reports.
+    assert Pass1("f32", 5, 5).tiles == 4
     assert asked == [("f32", plan.block_size, 0)]
     assert launch["info"] == {"chunks": chunks, "kernels": 3 * chunks,
-                              "pass1_ctas": 12, "pass1_items": 4 * pairs,
                               "log_n1": 5, "log_n2": 5, "pairs": pairs,
-                              "chunk_pairs": 4, "pass1_ring": 2,
-                              "twiddle_bytes": 32 * 32 * 8}
+                              "chunk_pairs": 4, "pass1_ring": 2}
+
+
+@pytest.mark.parametrize("precision,i16", [("high", False), ("fast", False),
+                                           ("fast", True)])
+def test_the_launch_span_holds_only_what_the_host_decided_and_the_ring(
+        monkeypatch, precision, i16):
+    # In every mode: the host's chunking and split, and pass 1's ring depth
+    # as the library reports it; nothing of the compiled launch geometry.
+    _fake_card(monkeypatch, _FakeEntry())
+    monkeypatch.setattr(sf, "pass1_occupancy", lambda *a: {
+        "resident_ctas": 132, "ring_depth": 1})
+    plan = _small_plan(precision)
+    x = torch.zeros((2, 5000), dtype=torch.int16 if i16 else torch.float32)
+    with spans.recording():
+        sf._launch(x, plan, plan.mo2, 5000, i16)
+    (launch,) = [s for s in spans.spans() if s["name"] == "segment.launch"]
+    assert set(launch["info"]) == {"chunks", "kernels", "pairs", "chunk_pairs",
+                                   "log_n1", "log_n2", "pass1_ring"}
 
 
 @pytest.mark.parametrize("freq,slope,split,pairs,chunk,ring", [
@@ -199,11 +215,10 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
 def test_the_launch_span_names_the_split_it_ran(monkeypatch, freq, slope, split,
                                                 pairs, chunk, ring):
     # A CPU-built plan of a 96 kHz deployment, launched on a stand-in card:
-    # the span gives the split, the pairs and the chunk, the ring depth
-    # pass1_occupancy reports and the twiddle bytes the column passes read
-    # (the 4 MiB table at 2^18, the factor tables of 128 + 8 rows of 512
-    # complex128 at 2^19); the counters key the call by split and by its
-    # twiddle.
+    # the span gives the split, the pairs and the chunk and the ring depth
+    # pass1_occupancy reports; the entry point gets the twiddle table of
+    # twiddle_layout (the 4 MiB table at 2^18, the factor tables of 128 + 8
+    # rows of 512 complex128 at 2^19).
     entry = _FakeEntry()
     _fake_card(monkeypatch, entry)
     monkeypatch.setattr(sf, "pass1_occupancy", lambda *a: {
@@ -212,37 +227,51 @@ def test_the_launch_span_names_the_split_it_ran(monkeypatch, freq, slope, split,
                                                device="cpu")
     assert sf.split(plan.block_size) == split
     x = torch.zeros((2, 1_000_000))
-    before = collections.Counter(sf.splits)
-    factored = sf.twiddle_factored["f64"]
     with spans.recording():
         sf._launch(x, plan, plan.mo2, x.shape[1], False)
-    key = f"f64 {split[0]}x{split[1]}"
-    assert sf.splits - before == {key: 1}
     long = split == (10, 9)
-    assert sf.twiddle_factored["f64"] == factored + long
     (launch,) = [s for s in spans.spans() if s["name"] == "segment.launch"]
     info = launch["info"]
     assert (info["log_n1"], info["log_n2"]) == split
     assert (info["pairs"], info["chunk_pairs"], info["pass1_ring"]) == \
         (pairs, chunk, ring)
     assert info["pairs"] == sf.call_pairs(2, x.shape[1], plan.hop)
-    assert info["pass1_items"] == pairs * sf.pass1_tiles(plan.block_size)
-    assert info["twiddle_bytes"] == (1_114_112 if long else 4_194_304)
+    # Pass 1's items (pair, column tile) in the tests' model: 64 or 128
+    # tiles a pair.
+    assert pairs * Pass1("f64", *split).tiles == (512 if long else 384)
+    layout = sf.twiddle_layout(plan.block_size, plan.H.dtype)
+    assert layout["factored"] == long
+    assert layout["bytes"] == (1_114_112 if long else 4_194_304)
     assert entry.calls[0][1][-2] == chunk
-    # The table the entry point got is the one the span counted.
+    # The table the entry point got is the one twiddle_layout names.
     tw4 = sf.kernel_tables(plan.block_size, plan.H.dtype, plan.H.device)[0]
     assert entry.calls[0][1][4] == tw4.data_ptr()
+    assert tw4.nbytes == layout["bytes"]
     assert tw4.shape == ((136, 512) if long else (512, 512))
 
 
 def test_a_failed_launch_raises_and_counts_nothing(monkeypatch):
     _fake_card(monkeypatch, _FakeEntry(rc=700))
-    before = (dict(sf.launches), dict(sf.kernels), dict(sf.splits),
-              dict(sf.twiddle_factored))
+    before = (dict(sf.launches), dict(sf.kernels))
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         sf._launch(torch.zeros((2, 5000)), _small_plan(), 0, 4000, False)
-    assert (dict(sf.launches), dict(sf.kernels), dict(sf.splits),
-            dict(sf.twiddle_factored)) == before
+    assert (dict(sf.launches), dict(sf.kernels)) == before
+
+
+@pytest.mark.parametrize("segment_len,frames", [(0, [5000]),
+                                                (2 * 864, [1728, 1728, 1544])])
+def test_the_16bit_route_records_a_filter_span_a_segment(segment_len, frames):
+    plan = _small_plan("fast")
+    assert plan.hop == 864
+    x16 = np.random.default_rng(4).integers(-20000, 20000, (2, 5000),
+                                             dtype=np.int16)
+    with spans.recording():
+        filter_array_streamed_i16(x16, plan, segment_len=segment_len)
+    got = spans.spans()
+    assert [s["name"] for s in got] == ["filter"] * len(frames)
+    assert [s["info"] for s in got] == [
+        {"engine": "pallas", "precision": "fast", "channels": 2, "frames": f}
+        for f in frames]
 
 
 def _wav(path, seed=3):

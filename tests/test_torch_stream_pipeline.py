@@ -260,7 +260,7 @@ ROUTES = {
                  lambda cb: filter_array_streamed(
                      signal(2), plan("fast", "fourstep"), segment_len=SEG,
                      progress_cb=cb)),
-    "i16": (sf, "segment_filter",
+    "i16": (osv, "extended_filter_peak",
             lambda r: tuple(map(_watch, r)),
             lambda cb: filter_array_streamed_i16(pcm(2), plan("fast"),
                                                  segment_len=SEG,
