@@ -535,32 +535,19 @@ __device__ __forceinline__ void cols_forward_store(
 // forward FFT alone, or its load, exchanges and store with no arithmetic.
 constexpr int kRowsFull = 0, kRowsForward = 1, kRowsCopy = 2;
 
-// Pass 2: rows [blockIdx.x * kR, +kR) of pair blockIdx.y of the scratch:
-// FFT, times H, inverse FFT, in place. Each row is read and written by its
-// own kNT threads on consecutive lanes.
-template <typename T, class S, int kRows = kRowsFull>
-__global__ void __launch_bounds__(Rows<T, S>::kThreads, Rows<T, S>::kMinBlocks)
-rows_multiply(Cx<T>* __restrict__ scratch, const Cx<T>* __restrict__ H,
-              const Cx<T>* __restrict__ w2) {
-  using RW = Rows<T, S>;
-  using F = typename RW::F;
+// Pass 2 on one row held in registers at pos<0>(t, m) (scratch row `row`
+// of a pair, at blk): FFT, times H, inverse FFT, stored to blk in place;
+// s is the row's exchange tile. kLead: the tile was read before (by an
+// earlier item of a persistent CTA), so its first exchange waits for those
+// reads. rows_multiply and segment_filter.cuh's persistent pass share it.
+template <typename T, class S, int kRows, bool kLead>
+__device__ __forceinline__ void rows_transform(
+    Cx<T> (&v)[Fft<T, S::kLog2>::kE], Cx<T>* s, const Cx<T>* tw,
+    const Cx<T>* H, size_t row, Cx<T>* blk, int t) {
+  using F = Fft<T, S::kLog2>;
   constexpr bool kArith = kRows != kRowsCopy;
   constexpr int kLast = F::kStages - 1;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Cx<T>* tab = reinterpret_cast<Cx<T>*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int t = tid & (F::kNT - 1), r = tid >> F::kLogNT;
-  Cx<T>* s = tab + F::kTableElems + r * F::kL;
-  const Cx<T>* tw = F::kGlobalTw ? w2 : tab;
-  const size_t row = (size_t)blockIdx.x * RW::kR + r;
-  Cx<T>* blk = scratch + (size_t)blockIdx.y * S::kB + row * S::kN2;
-
-  if constexpr (kArith) F::build_table(tab, w2, tid, RW::kThreads);
-  Cx<T> v[F::kE];
-#pragma unroll
-  for (int m = 0; m < F::kE; ++m) v[m] = blk[F::template pos<0>(t, m)];
-  if constexpr (kArith) __syncthreads();  // the twiddle tables
-  F::template forward<1, false, kArith>(v, s, tw, t);
+  F::template forward<1, kLead, kArith>(v, s, tw, t);
   if constexpr (kRows == kRowsForward) {
 #pragma unroll
     for (int m = 0; m < F::kE; ++m) blk[F::template pos<kLast>(t, m)] = v[m];
@@ -575,6 +562,33 @@ rows_multiply(Cx<T>* __restrict__ scratch, const Cx<T>* __restrict__ H,
 #pragma unroll
     for (int m = 0; m < F::kE; ++m) blk[F::template pos<0>(t, m)] = v[m];
   }
+}
+
+// Pass 2: rows [blockIdx.x * kR, +kR) of pair blockIdx.y of the scratch:
+// FFT, times H, inverse FFT, in place. Each row is read and written by its
+// own kNT threads on consecutive lanes.
+template <typename T, class S, int kRows = kRowsFull>
+__global__ void __launch_bounds__(Rows<T, S>::kThreads, Rows<T, S>::kMinBlocks)
+rows_multiply(Cx<T>* __restrict__ scratch, const Cx<T>* __restrict__ H,
+              const Cx<T>* __restrict__ w2) {
+  using RW = Rows<T, S>;
+  using F = typename RW::F;
+  constexpr bool kArith = kRows != kRowsCopy;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Cx<T>* tab = reinterpret_cast<Cx<T>*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int t = tid & (F::kNT - 1), r = tid >> F::kLogNT;
+  Cx<T>* s = tab + F::kTableElems + r * F::kL;
+  const Cx<T>* tw = F::kGlobalTw ? w2 : tab;
+  const size_t row = (size_t)blockIdx.x * RW::kR + r;
+  Cx<T>* blk = scratch + (size_t)blockIdx.y * S::kB + row * S::kN2;
+
+  if constexpr (kArith) F::build_table(tab, w2, tid, RW::kThreads);
+  Cx<T> v[F::kE];
+#pragma unroll
+  for (int m = 0; m < F::kE; ++m) v[m] = blk[F::template pos<0>(t, m)];
+  if constexpr (kArith) __syncthreads();  // the twiddle tables
+  rows_transform<T, S, kRows, false>(v, s, tw, H, row, blk, t);
 }
 
 // Pass 3, before the scatter: v gets column c0 + w of the pair's scratch

@@ -5,9 +5,10 @@
 // LOWCUT_ABLATE (audio_fir_filter_tpu/ops/pallas_fft.py:124-155, read in
 // _call_fused), which experiments/fast_decomp_r05.py timed one subprocess
 // per variant. Nothing here is a copy of the shipped code: the passes are
-// segment_filter.cuh's cols_forward / run_split and fourstep.cuh's
-// rows_multiply, instantiated with their switches (Ablate), so a time here
-// is a time of the kernel that ships. Variant (JAX tokens): what it leaves
+// segment_filter.cuh's cols_forward / rows_multiply_ring (pass 2 in f64) /
+// run_split and fourstep.cuh's rows_multiply (pass 2 in f32 and i16),
+// instantiated with their switches (Ablate), so a time here is a time of
+// the kernel that ships. Variant (JAX tokens): what it leaves
 // out; its defined output.
 //   0 full      (none): nothing, the shipped kernel; the segment filter;
 //   1 no_gather (dma, noreadx): pass 1's reads of the signal; zeros;

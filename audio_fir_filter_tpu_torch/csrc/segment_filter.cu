@@ -60,11 +60,19 @@
 // p95 -7.7 %). f32 and i16 run two CTAs an SM, which already overlap, and
 // there a ring ran slower (it takes the L1 the gather stages through), so
 // they keep one CTA an item: 1.75 / 1.93 / 2.04 us a pair (NVIDIA H100
-// 80GB HBM3, 700 W; PERF.md). fourstep.cuh holds the FFT engine, the
+// 80GB HBM3, 700 W; PERF.md). Pass 2 in f64 then held 43 % of the card's
+// time at 2^18 (4.2 us a pair against 2.92 of bytes), its 512-thread CTA
+// alone on its SM; it is persistent too (segment_filter.cuh Pass2): CTAs
+// of 2 rows (128 threads), four an SM at the same register cap, walk the
+// (pair, row tile) items and bring the next item's rows into a two-stage
+// ring by one bulk copy each, the stage then the item's exchange tile:
+// 3.56 us a pair at 2^18, 7.33 at 2^19 (8.46 before). The f32 and i16 row
+// pass keeps rows_multiply. fourstep.cuh holds the FFT engine, the
 // passes' shared halves and rows_multiply (shared with conv_blocks.cu),
 // and says why tensor cores are not used; segment_filter.cuh holds the
-// signal gather, the valid-hop scatter, the peak and the launch loop, with
-// the ablation switches whose defaults this file instantiates. All
+// signal gather, the valid-hop scatter, the peak, pass 2's ring and the
+// launch loop, with the ablation switches whose defaults this file
+// instantiates. All
 // twiddles and H come from host float64 tables (rounded to float for the
 // f32 modes); no fast-math sin/cos is used. Where the four-step twiddle
 // table would exceed 4 MiB (f64 from B = 2^19, f32 from 2^20) the column
@@ -116,6 +124,13 @@ int pass1_occupancy_of(int log_n1, int log_n2, int* out) {
   });
 }
 
+template <typename T>
+int pass2_occupancy_of(int log_n1, int log_n2, int* out) {
+  return with_split(log_n1, log_n2, [&](auto sp) {
+    return pass2_occupancy<T, decltype(sp)>(out);
+  });
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each launches on `stream`,
@@ -148,6 +163,21 @@ extern "C" int lowcut_segment_pass1_occupancy(int mode, int log_n1, int log_n2,
     case 0: return pass1_occupancy_of<float, float>(log_n1, log_n2, o);
     case 1: return pass1_occupancy_of<double, float>(log_n1, log_n2, o);
     case 2: return pass1_occupancy_of<float, int16_t>(log_n1, log_n2, o);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Pass 2 of one mode (0 f32, 1 f64, 2 i16) at one split: out[8] ints, [CTAs
+// per SM, threads, dynamic shared bytes, registers, local-memory bytes,
+// ring depth (0: rows_multiply, no ring), row tiles a pair, resident CTAs
+// (0 without a ring)]. f32 and i16 share their row pass.
+extern "C" int lowcut_segment_pass2_occupancy(int mode, int log_n1, int log_n2,
+                                              void* out) {
+  int* o = static_cast<int*>(out);
+  switch (mode) {
+    case 0:
+    case 2: return pass2_occupancy_of<float>(log_n1, log_n2, o);
+    case 1: return pass2_occupancy_of<double>(log_n1, log_n2, o);
     default: return cudaErrorInvalidValue;
   }
 }

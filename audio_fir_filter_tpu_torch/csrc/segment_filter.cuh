@@ -1,10 +1,13 @@
 // The segment kernel's column passes (pass 1 with its signal gather, pass 3
-// with its valid-hop scatter and peak) and its launch loop, shared by
-// segment_filter.cu, which instantiates the defaults (the shipped kernel),
-// and probe_segment.cu, which instantiates the ablation variants to time
-// the code that ships. fourstep.cuh holds the FFT engine and pass 2
-// (rows_multiply); segment_filter.cu says what the kernel computes and what
-// bounds it. Internal linkage, as fourstep.cuh.
+// with its valid-hop scatter and peak), the persistent form of pass 2
+// (rows_multiply_ring) and its launch loop, shared by segment_filter.cu,
+// which instantiates the defaults (the shipped kernel), and
+// probe_segment.cu, which instantiates the ablation variants to time the
+// code that ships. fourstep.cuh holds the FFT engine and pass 2 with one
+// CTA an item (rows_multiply, and the per-row body both forms share);
+// tma.cuh the bulk copies and mbarriers of pass 2's ring; segment_filter.cu
+// says what the kernel computes and what bounds it. Internal linkage, as
+// fourstep.cuh.
 
 #pragma once
 
@@ -12,6 +15,7 @@
 #include <stdint.h>
 
 #include "fourstep.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -129,8 +133,9 @@ __device__ __forceinline__ T word_sample(const int16_t*, uint32_t u, int half) {
   return load_sample<T>(static_cast<int16_t>(u >> (16 * half)));
 }
 
-// Shared memory a CTA may use.
-constexpr size_t kCtaSmemMax = 232448;
+// Shared memory a CTA may use, an SM has, and the card keeps of it for
+// each CTA.
+constexpr size_t kCtaSmemMax = 232448, kSmSmem = 233472, kCtaReserved = 1024;
 
 // Pass 1's items: item = local pair * kTiles + column tile, kTiles tiles
 // of kW columns a pair.
@@ -374,33 +379,206 @@ cols_inverse(const Cx<T>* __restrict__ scratch, IO* __restrict__ y,
     atomicMax(peak_bits, __float_as_uint(pk));
 }
 
-// CTAs of one pass-1 instantiation the card holds at once (CTAs an SM
-// holds times SMs); asked once a process, after its shared-memory limit is
-// raised.
+// Pass 2's items: item = local pair * kTiles + row tile, kTiles tiles of
+// kR rows a pair. An item's kR rows are one contiguous run of the scratch
+// (kR * N2 values), so item it sits at scratch + it * kStageElems.
+//
+// Where Rows aims at one CTA an SM (kMinBlocks == 1: f64 from 512-point
+// rows, f32 and i16 at 8192), rows_multiply's CTA loaded its 8 rows,
+// transformed them and stored them with nothing beside it on the SM, so the
+// pass moved its bytes at about the copy rate and its arithmetic came on
+// top (PERF.md). There the pass is persistent: CTA b of G (the CTAs the
+// card holds at once) walks items b, b + G, b + 2G, ..., builds its twiddle
+// tables once, and brings each item's rows into a ring of kDepth
+// shared-memory stages kDepth - 1 items ahead of the one it transforms.
+// Thread 0 fills a stage with one 1-D bulk copy (tma.cuh) that completes on
+// the stage's mbarrier; the threads read their registers from it at
+// pos<0>(t, m), as rows_multiply reads the scratch, and the stage then is
+// the item's exchange tile; the result is stored from the registers in
+// place. A stage is refilled at the start of the item after the one that
+// used it, past a barrier that follows every thread's last exchange, each
+// thread's exchange writes fenced from the bulk copy's (async proxy) ones.
+//
+// An item is the rows of kRingThreads = 128 threads (2 at 512 points), so
+// four CTAs share an SM at the same register cap and overlap one another's
+// phases besides their own loads, and their shared memory (4 x 40 KB at
+// 512 points) leaves the L1 through which the H loads reuse their lines.
+// At 2^18 (H100, PERF.md): rows_multiply 4.14-4.25 us a pair; a ring of
+// 8-row items, one CTA an SM, 4.12-4.18, and 5.4-6.5 with 200 KB of shared
+// memory; 4 rows, two CTAs, 3.69-3.73; 2 rows, four CTAs, 3.56-3.58; 1
+// row, eight CTAs, 4.37-4.39. kDepth is what a CTA's share of the SM holds
+// beside its tables, at most 2; 1 is the same loop, unpipelined (f64 at
+// 8192-point rows), and 0 where Rows aims at two or more CTAs an SM (f32
+// and i16 at 2^18): there rows_multiply runs as it is, one CTA an item.
+template <typename T, class S>
+struct Pass2 {
+  using RW = Rows<T, S>;
+  using F = typename RW::F;
+  // Rows an item: those of kRingThreads threads (at least 1, at most
+  // rows_multiply's kR), so several CTAs share an SM; the CTAs an SM holds
+  // as min_blocks gives them, each kCtaBudget of shared memory.
+  static constexpr int kRingThreads = 128;
+  static constexpr int kR = cclamp(kRingThreads / F::kNT, 1, RW::kR);
+  static constexpr int kThreads = kR * F::kNT;
+  static constexpr int kMinBlocks = min_blocks(kThreads, sizeof(T) == 8);
+  static constexpr int kTiles = S::kN1 / kR;
+  static constexpr int kStageElems = kR * F::kL;
+  static constexpr size_t kStageBytes = sizeof(Cx<T>) * (size_t)kStageElems;
+  static_assert(kStageBytes % 16 == 0 && kStageBytes < (1u << 20),
+                "a stage is one bulk copy");
+  // The stages after the tables (16-byte aligned for the bulk copies), then
+  // one mbarrier a stage.
+  static constexpr size_t kRingOff =
+      (sizeof(Cx<T>) * (size_t)F::kTableElems + 15) & ~(size_t)15;
+  static constexpr size_t kBarBytes = 16;
+  static constexpr size_t kCtaBudget =
+      kMinBlocks > 1 ? kSmSmem / kMinBlocks - kCtaReserved : kCtaSmemMax;
+  static constexpr int kDepth =
+      RW::kMinBlocks > 1
+          ? 0
+          : cclamp((int)((kCtaBudget - kRingOff - kBarBytes) / kStageBytes),
+                   0, 2);
+  static constexpr size_t kBarOff = kRingOff + (size_t)kDepth * kStageBytes;
+  static constexpr size_t kSmem = kDepth ? kBarOff + kBarBytes : RW::kSmem;
+  static constexpr int kLaunchThreads = kDepth ? kThreads : RW::kThreads;
+  static_assert(kDepth == 0 || kSmem <= kCtaBudget,
+                "the ring must fit its CTAs an SM");
+
+  // Start the copy of item `it`'s rows into stage st (thread 0).
+  __device__ static __forceinline__ void load(Cx<T>* st, const Cx<T>* scratch,
+                                              long long it, Bar* bar) {
+    mbar_expect_tx(bar, (unsigned)kStageBytes);
+    bulk_load(st, scratch + it * kStageElems, (unsigned)kStageBytes, bar);
+  }
+};
+
+// Pass 2 through the ring (Pass2, kDepth > 0): the chunk's `items` (pair,
+// row tile) items, each FFT, times H, inverse FFT, in place. Grid:
+// pass_grid.
+template <typename T, class S, int kRows = kRowsFull>
+__global__ void
+__launch_bounds__(Pass2<T, S>::kThreads, Pass2<T, S>::kMinBlocks)
+rows_multiply_ring(Cx<T>* __restrict__ scratch, const Cx<T>* __restrict__ H,
+                   const Cx<T>* __restrict__ w2, long long items) {
+  using P = Pass2<T, S>;
+  using F = typename P::F;
+  constexpr int kD = P::kDepth;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Cx<T>* tab = reinterpret_cast<Cx<T>*>(smem_raw);
+  Cx<T>* ring = reinterpret_cast<Cx<T>*>(smem_raw + P::kRingOff);
+  Bar* bar = reinterpret_cast<Bar*>(smem_raw + P::kBarOff);
+  const int tid = threadIdx.x;
+  const int t = tid & (F::kNT - 1), r = tid >> F::kLogNT;
+  const Cx<T>* tw = F::kGlobalTw ? w2 : tab;
+  const long long step = gridDim.x;
+  // The first kD - 1 items' copies go out before the tables are built,
+  // which happens once a CTA.
+  if (tid == 0) {
+#pragma unroll
+    for (int d = 0; d < kD; ++d) mbar_init(&bar[d], 1);
+    mbar_init_fence();
+#pragma unroll
+    for (int d = 0; d < kD - 1; ++d) {
+      const long long it = blockIdx.x + d * step;
+      if (it < items) P::load(ring + d * P::kStageElems, scratch, it, &bar[d]);
+    }
+  }
+  if constexpr (kRows != kRowsCopy) F::build_table(tab, w2, tid, P::kThreads);
+  int stage = 0;
+  unsigned phase = 0;
+  for (long long it = blockIdx.x; it < items; it += step) {
+    // Refill the stage used one item ago (the tables before the first
+    // item), then wait for this item's.
+    fence_async_shared();
+    __syncthreads();
+    if (tid == 0) {
+      const long long ahead = it + (kD - 1) * step;
+      const int fill = stage == 0 ? kD - 1 : stage - 1;
+      if (ahead < items)
+        P::load(ring + fill * P::kStageElems, scratch, ahead, &bar[fill]);
+    }
+    mbar_wait(&bar[stage], phase);
+    Cx<T>* s = ring + stage * P::kStageElems + r * F::kL;
+    const size_t row = (size_t)(it & (P::kTiles - 1)) * P::kR + r;
+    Cx<T> v[F::kE];
+#pragma unroll
+    for (int m = 0; m < F::kE; ++m) v[m] = s[F::template pos<0>(t, m)];
+    rows_transform<T, S, kRows, true>(
+        v, s, tw, H, row, scratch + it * P::kStageElems + r * F::kL, t);
+    if (++stage == kD) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// CTAs of a persistent pass the card holds at once (tma.cuh resident_ctas;
+// at least 1); asked once a process for each instantiation, after its
+// shared-memory limit is raised.
 template <typename T, typename IO, class S, class A>
 int pass1_resident() {
   static const int n = [] {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cols_forward<T, IO, S, A>, Cols<T, S>::kThreads,
-        Pass1<T, IO, S>::kSmem);
-    return (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+    int ctas = 0;
+    resident_ctas(cols_forward<T, IO, S, A>, Cols<T, S>::kThreads,
+                  Pass1<T, IO, S>::kSmem, &ctas);
+    return ctas > 0 ? ctas : 1;
+  }();
+  return n;
+}
+template <typename T, class S, int kRows>
+int pass2_resident() {
+  static const int n = [] {
+    int ctas = 0;
+    resident_ctas(rows_multiply_ring<T, S, kRows>, Pass2<T, S>::kThreads,
+                  Pass2<T, S>::kSmem, &ctas);
+    return ctas > 0 ? ctas : 1;
   }();
   return n;
 }
 
+// A persistent pass's grid for `items` items: the resident CTAs, or one an
+// item where there are fewer items.
+inline dim3 pass_grid(long long items, long long res) {
+  return dim3((unsigned)(items < res ? items : res));
+}
+
 // Pass 1's grid for a chunk of np pairs: without a ring one CTA an item
-// (tiles x pairs), else the resident CTAs, or one an item where there are
-// fewer items.
+// (tiles x pairs), else pass_grid.
 template <typename T, typename IO, class S, class A>
 dim3 pass1_grid(long long np) {
   using P = Pass1<T, IO, S>;
   if (P::kDepth == 0) return dim3(P::kTiles, (unsigned)np);
-  const long long items = np * P::kTiles;
-  const long long res = pass1_resident<T, IO, S, A>();
-  return dim3((unsigned)(items < res ? items : res));
+  return pass_grid(np * P::kTiles, pass1_resident<T, IO, S, A>());
+}
+
+// Pass 2's kernel and its shared bytes: rows_multiply without a ring,
+// else rows_multiply_ring (only the one that runs is instantiated).
+template <typename T, class S, int kRows>
+SmemLimit pass2_kernel() {
+  if constexpr (Pass2<T, S>::kDepth == 0) {
+    return {rows_multiply<T, S, kRows>, Rows<T, S>::kSmem};
+  } else {
+    return {rows_multiply_ring<T, S, kRows>, Pass2<T, S>::kSmem};
+  }
+}
+
+// Pass 2 on a chunk of np pairs: rows_multiply with one CTA an item (tiles
+// x pairs), or rows_multiply_ring on pass_grid.
+template <typename T, class S, int kRows>
+void pass2_launch(Cx<T>* sc, const Cx<T>* H, const Cx<T>* w2, long long np,
+                  cudaStream_t stream) {
+  using P = Pass2<T, S>;
+  constexpr int kThreads = P::kLaunchThreads;
+  if constexpr (P::kDepth == 0) {
+    rows_multiply<T, S, kRows>
+        <<<dim3(S::kN1 / Rows<T, S>::kR, (unsigned)np), kThreads, P::kSmem, stream>>>(
+            sc, H, w2);
+  } else {
+    const long long items = np * P::kTiles;
+    rows_multiply_ring<T, S, kRows>
+        <<<pass_grid(items, pass2_resident<T, S, kRows>()), kThreads, P::kSmem,
+           stream>>>(sc, H, w2, items);
+  }
 }
 
 // The three passes over `total` pairs, chunk_pairs at a time through the
@@ -411,22 +589,19 @@ int run_split(const IO* x, IO* y, unsigned int* pk, const Cx<T>* H,
               Geometry g, long long total, long long chunk_pairs,
               cudaStream_t stream) {
   using C = Cols<T, S>;
-  using RW = Rows<T, S>;
   using P = Pass1<T, IO, S>;
   cudaError_t err = allow_smem({{cols_forward<T, IO, S, A>, P::kSmem},
-                                {rows_multiply<T, S, A::kRows>, RW::kSmem},
+                                pass2_kernel<T, S, A::kRows>(),
                                 {cols_inverse<T, IO, S, A>, C::kSmem}});
   if (err != cudaSuccess) return err;
   for (long long p0 = 0; p0 < total; p0 += chunk_pairs) {
     const long long np = (total - p0) < chunk_pairs ? (total - p0) : chunk_pairs;
     g.pair0 = p0;
     const dim3 grid_cols(S::kN2 / C::kW, (unsigned)np);
-    const dim3 grid_rows(S::kN1 / RW::kR, (unsigned)np);
     cols_forward<T, IO, S, A>
         <<<pass1_grid<T, IO, S, A>(np), C::kThreads, P::kSmem, stream>>>(
             x, sc, tw4, w1, g, np * P::kTiles);
-    rows_multiply<T, S, A::kRows><<<grid_rows, RW::kThreads, RW::kSmem, stream>>>(
-        sc, H, w2);
+    pass2_launch<T, S, A::kRows>(sc, H, w2, np, stream);
     cols_inverse<T, IO, S, A><<<grid_cols, C::kThreads, C::kSmem, stream>>>(
         sc, y, pk, tw4, w1, g);
     err = cudaGetLastError();
@@ -448,6 +623,26 @@ int pass1_occupancy(int* out) {
   out[5] = P::kDepth;
   out[6] = P::kTiles;
   out[7] = pass1_resident<T, IO, S, Shipped>();
+  return err;
+}
+
+// Pass 2 at one split: occupancy()'s five numbers of the kernel that runs,
+// then the ring's depth (0: none, rows_multiply), the row tiles a pair and
+// the resident CTAs (0 without a ring).
+template <typename T, class S>
+int pass2_occupancy(int* out) {
+  using P = Pass2<T, S>;
+  const SmemLimit k = pass2_kernel<T, S, kRowsFull>();
+  cudaError_t err = allow_smem({k});
+  if (err == cudaSuccess)
+    err = occupancy(k.kernel, P::kLaunchThreads, k.bytes, out);
+  out[5] = P::kDepth;
+  out[6] = P::kDepth ? P::kTiles : S::kN1 / Rows<T, S>::kR;
+  if constexpr (P::kDepth > 0) {
+    out[7] = pass2_resident<T, S, kRowsFull>();
+  } else {
+    out[7] = 0;
+  }
   return err;
 }
 

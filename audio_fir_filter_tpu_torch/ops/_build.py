@@ -75,6 +75,7 @@ FAMILIES = {
 # or precision, log_n1, log_n2, out), one signature for all.
 QUERIES = {
     "segment_filter": ("lowcut_segment_pass1_occupancy",
+                       "lowcut_segment_pass2_occupancy",
                        "lowcut_segment_twiddle_layout"),
     "conv_blocks": ("lowcut_conv_blocks_occupancy",),
 }

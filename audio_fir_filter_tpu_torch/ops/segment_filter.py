@@ -82,10 +82,24 @@ def call_pairs(channels: int, out_len: int, hop: int) -> int:
     return channels * ((-(-out_len // hop) + 1) // 2)
 
 
-_PASS1_KEYS = ("ctas_per_sm", "threads", "smem_bytes", "registers",
-               "local_bytes", "ring_depth", "tiles", "resident_ctas")
+_OCCUPANCY_KEYS = ("ctas_per_sm", "threads", "smem_bytes", "registers",
+                   "local_bytes", "ring_depth", "tiles", "resident_ctas")
 # The C entry points' mode ids.
 _MODE_IDS = {"f32": 0, "f64": 1, "i16": 2}
+
+
+def _occupancy(query: str, mode: str, b: int, device_index: int) -> dict:
+    import ctypes
+
+    from . import _build
+
+    fn = getattr(_build.library("segment_filter"), query)
+    out = (ctypes.c_int * len(_OCCUPANCY_KEYS))()
+    with torch.cuda.device(device_index):
+        rc = fn(_MODE_IDS[mode], *split(b), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{query} failed: CUDA error {rc}")
+    return dict(zip(_OCCUPANCY_KEYS, out))
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,17 +111,18 @@ def pass1_occupancy(mode: str, b: int, device_index: int = 0) -> dict:
     pair and the CTAs the card holds at once (with a ring, the grid of a
     chunk with at least as many items). Asked of the built kernel once
     per (mode, B, card); needs a card."""
-    import ctypes
+    return _occupancy("lowcut_segment_pass1_occupancy", mode, b, device_index)
 
-    from . import _build
 
-    fn = _build.library("segment_filter").lowcut_segment_pass1_occupancy
-    out = (ctypes.c_int * len(_PASS1_KEYS))()
-    with torch.cuda.device(device_index):
-        rc = fn(_MODE_IDS[mode], *split(b), ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"pass 1 occupancy query failed: CUDA error {rc}")
-    return dict(zip(_PASS1_KEYS, out))
+@functools.lru_cache(maxsize=None)
+def pass2_occupancy(mode: str, b: int, device_index: int = 0) -> dict:
+    """Pass 2 of ``mode`` at block size ``b`` on card ``device_index``, in
+    :func:`pass1_occupancy`'s keys: the kernel that runs
+    (``rows_multiply_ring`` with a ring, ``rows_multiply`` without), its
+    ring's depth (0: no ring, one CTA an item), the row tiles a pair and
+    the CTAs the card holds at once (0 without a ring). Asked of the built
+    kernel once per (mode, B, card); needs a card."""
+    return _occupancy("lowcut_segment_pass2_occupancy", mode, b, device_index)
 
 
 def entry_chunks(pairs: int, chunk: int) -> int:
@@ -387,8 +402,9 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     here; the entry point is called in the span ``segment.launch``, which
     gets what the host decided: the chunks, the kernels, the split
     (``log_n1``, ``log_n2``), the pairs the call filters (``pairs``) and a
-    chunk holds (``chunk_pairs``); and what the library reports: pass 1's
-    ring depth (``pass1_ring``, 0 without a ring; :func:`pass1_occupancy`).
+    chunk holds (``chunk_pairs``); and what the library reports: the ring
+    depths of pass 1 and pass 2 (``pass1_ring``, ``pass2_ring``, 0 without
+    a ring; :func:`pass1_occupancy`, :func:`pass2_occupancy`).
     Returns the kernels it launched; raises if the launch failed."""
     from . import _build
 
@@ -410,10 +426,11 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     prep.end()
     with spans.span("segment.launch") as s, torch.cuda.device(dev):
         if s:
-            occ = pass1_occupancy(entry.rsplit("_", 1)[1], b, dev.index or 0)
+            mode, card = entry.rsplit("_", 1)[1], dev.index or 0
             s.set(chunks=chunks, kernels=KERNELS_PER_CHUNK * chunks,
                   log_n1=l1, log_n2=l2, pairs=pairs, chunk_pairs=chunk,
-                  pass1_ring=occ["ring_depth"])
+                  pass1_ring=pass1_occupancy(mode, b, card)["ring_depth"],
+                  pass2_ring=pass2_occupancy(mode, b, card)["ring_depth"])
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), peak.data_ptr(), H.data_ptr(),
                 tw4.data_ptr(), w1.data_ptr(), w2.data_ptr(),

@@ -19,10 +19,12 @@ result line):
    passes that ran on the card, as far as the trace kept them, may not
    exceed it), and median device times
    (CUDA events around each call queued behind a sleep kernel,
-   ``experiments/_probe.event_ms``); pass 1's occupancy at B = 2^18 in
-   each mode, and in f64 at B = 2^19 (the 1024 x 512 split of M = 76,800)
-   (ring depth, CTAs per SM, registers), which must have no local (stack
-   or spill) bytes; each mode's four-step twiddle layout at B = 2^18 and
+   ``experiments/_probe.event_ms``); pass 1's and pass 2's occupancy at
+   B = 2^18 in each mode, and in f64 at B = 2^19 (the 1024 x 512 split of
+   M = 76,800) (ring depth, CTAs per SM, registers), which must have no
+   local (stack or spill) bytes (pass 1, and pass 2 in f64), pass 2 a
+   ring of 2 at four CTAs of 128 threads an SM in f64 and none in f32 and
+   i16; each mode's four-step twiddle layout at B = 2^18 and
    2^19 (the full table, or two factor tables where it would exceed
    4 MiB), failing where the library's compile-time rule and
    ``kernel_tables``' rule disagree at any B = 2^2 .. 2^26; the long
@@ -47,7 +49,8 @@ result line):
    route), (c) a loud 16-bit WAV that saturates, falls back to float32 and
    auto-normalizes. Launch counters are zeroed before (a) and read after
    (c), the launch spans recorded; every segment-kernel mode must have
-   launched, one span a launch, none at a split whose twiddle is
+   launched, one span a launch, each with its pass-2 ring depth (2 in
+   f64, 0 in f32 and i16), none at a split whose twiddle is
    factored (``twiddle_layout``); then (a) with the long filter (``-f 10
    -s 5``, B = 2^19): every launch f64, its span at 10x9, where the
    twiddle is factored, oracle excerpts within 1 LSB@24;
@@ -525,8 +528,10 @@ def phase_kernels() -> dict:
               f"plain (cuFFT) {plain_ms:.3f} ms, "
               f"{2 * n / (min(ms, ms2) * 1e-3) / 1e9:.3f} Gsamples/s")
         _pass1_row(sf, mode, 18)
+        _pass2_row(sf, mode, 18)
         if mode == "f64":
             _pass1_row(sf, mode, 19)
+            _pass2_row(sf, mode, 19)
 
         # Float64 oracle on head, a pair seam and tail excerpts.
         xin = x.astype(np.float64) / (32768.0 if i16 else 1.0)
@@ -655,6 +660,28 @@ def _pass1_row(sf, mode: str, log_b: int) -> None:
     check(occ["local_bytes"] == 0 and occ["ctas_per_sm"] >= 1,
           f"pass 1 {mode} at 2^{log_b}: {occ['local_bytes']} local bytes per "
           f"thread, {occ['ctas_per_sm']} CTAs per SM")
+
+
+def _pass2_row(sf, mode: str, log_b: int) -> None:
+    """Print pass 2's occupancy of ``mode`` at B = 2^``log_b``; fail unless
+    f64 runs the persistent row pass (a ring of 2 stages, four CTAs of 128
+    threads an SM) with no local bytes, and f32 and i16 rows_multiply (no
+    ring; its local bytes are printed)."""
+    occ = sf.pass2_occupancy(mode, 1 << log_b)
+    l1, l2 = sf.split(1 << log_b)
+    print(f"pass 2 {mode} at B = 2^{log_b} ({1 << l1} x {1 << l2}): ring depth "
+          f"{occ['ring_depth']}, {occ['ctas_per_sm']} CTAs per SM "
+          f"({occ['resident_ctas']} resident), {occ['threads']} threads, "
+          f"{occ['smem_bytes']} shared bytes, {occ['registers']} registers, "
+          f"{occ['local_bytes']} local bytes")
+    if mode == "f64":
+        ok = ((occ["ring_depth"], occ["ctas_per_sm"], occ["threads"]) == (2, 4, 128)
+              and occ["local_bytes"] == 0)
+    else:
+        ok = occ["ring_depth"] == 0 and occ["ctas_per_sm"] >= 1
+    check(ok, f"pass 2 {mode} at 2^{log_b}: ring depth {occ['ring_depth']}, "
+          f"{occ['ctas_per_sm']} CTAs of {occ['threads']} threads per SM, "
+          f"{occ['local_bytes']} local bytes per thread")
 
 
 def phase_edge_shapes() -> None:
@@ -1009,6 +1036,11 @@ def phase_main_path(card: str, files: dict) -> dict:
           f"{splits}")
     n = sum(sf.launches.values())
     check(len(got) == n, f"{n} launches, {splits} launch spans")
+    rings = [s["info"].get("pass2_ring") for s in spans.spans()
+             if s["name"] == "segment.launch"]
+    check(None not in rings and set(rings) == {0, 2},
+          f"pass 2 ring depths of the launch spans: {sorted(set(map(str, rings)))} "
+          "(every span carries one: 2 in f64, 0 in f32 and i16)")
     for k, v in counts.items():
         if k.startswith("segment_filter_"):
             check(v > 0, f"kernel {k} never launched on the main path")

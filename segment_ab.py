@@ -6,7 +6,8 @@ against each other on one card.
 For a change that must leave the shipped kernel as it was (a refactor of
 ``csrc/``), run from this checkout's root with another checkout (say, the
 parent commit unpacked by ``git archive``) as ``OTHER_ROOT``. Both
-checkouts build their ``segment_filter`` library at once; then one child
+checkouts build their ``segment_filter`` and ``conv_blocks`` libraries at
+once; then one child
 process per turn, in the order other, this, this, other, with the turn's
 checkout as its working directory, imports that checkout's package and
 ``chip_smoke.py`` and prints:
@@ -14,6 +15,8 @@ checkout as its working directory, imports that checkout's package and
 - the ``ptxas`` summary line of its build (``chip_smoke._ptxas_summary``),
   and the ``ptxas`` report of each B = 2^18 (512 x 512) instantiation,
   with the sha256 of its SASS where the toolkit has ``cuobjdump``;
+- the block path's (``conv_blocks``, which shares ``fourstep.cuh``)
+  ``ptxas`` summary line and the sha256 of all its SASS;
 - the sha256 of the kernel's output and peak on chip_smoke's phase-3 calls
   (the seeded 2 x 30 s inputs: f64 and f32 at 96 kHz, i16 at 44.1 kHz);
 - the sha256 of file (a) (chip_smoke's 10-minute 96 kHz 24-bit WAV, made
@@ -25,10 +28,11 @@ prints each turn's times: a difference between the two checkouts reads
 only against the spread of one checkout's two turns. ``--new-code``: the
 change compiles to other code by design (a redesigned pass with the same
 arithmetic, or one that changes only other splits); the hashes must still
-be equal, the ``ptxas`` lines of the two checkouts are printed and may
-differ (each checkout's two turns must still agree), and it prints
-whether the 2^18 instantiations' ``ptxas`` reports and SASS are the
-same in both checkouts.
+be equal, the ``ptxas`` lines, the 2^18 instantiations and the block path
+of the two checkouts may differ (each checkout's two turns must still
+agree), and it prints, kernel by kernel at 2^18, which are equal in
+``ptxas`` report and SASS in both checkouts, which differ and which only
+one has, and whether the block path is the same.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ ROOT = Path(__file__).resolve().parent
 
 _BUILD = ("import sys; sys.path.insert(0, '.'); "
           "from audio_fir_filter_tpu_torch.ops import _build; "
-          "_build.build('segment_filter', force=True)")
+          "[_build.build(n, force=True) for n in ('segment_filter', 'conv_blocks')]")
 
 _TURN = textwrap.dedent("""
     import hashlib, json, os, re, shutil, subprocess, sys
@@ -80,16 +84,27 @@ _TURN = textwrap.dedent("""
             out["ptxas18"][cur].append(line.split(":", 1)[-1].strip())
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if os.path.isfile(cuobjdump):
-        sass = subprocess.run(
-            [cuobjdump, "-sass", str(_build.BUILD_DIR / "libsegment_filter.so")],
+
+    def sass(lib, keep):
+        dump = subprocess.run(
+            [cuobjdump, "-sass", str(_build.BUILD_DIR / f"lib{lib}.so")],
             capture_output=True, text=True).stdout
-        out["sass18"] = {}
-        for fn in re.split(r"\\n\\s*Function : ", sass)[1:]:
+        got = {}
+        for fn in re.split(r"\\n\\s*Function : ", dump)[1:]:
             name, _, body = fn.partition("\\n")
-            if tag in name:
-                out["sass18"][anon.sub("anon", name.strip())] = hashlib.sha256(
+            if keep(name):
+                got[anon.sub("anon", name.strip())] = hashlib.sha256(
                     anon.sub("anon", body).encode()).hexdigest()
+        return got
+
+    # The block path (conv_blocks.cu, which shares fourstep.cuh): its
+    # ptxas line and the sha256 of all its SASS.
+    out["blocks"] = {"ptxas": cs._ptxas_summary(
+        (_build.BUILD_DIR / "conv_blocks.ptxas.log").read_text()), "sass": None}
+    if os.path.isfile(cuobjdump):
+        out["sass18"] = sass("segment_filter", lambda name: tag in name)
+        out["blocks"]["sass"] = hashlib.sha256(json.dumps(
+            sass("conv_blocks", lambda name: True), sort_keys=True).encode()).hexdigest()
     rng = np.random.default_rng(cs.SEED)
     for mode, precision, fs, i16, _ in cs.MODES:
         plan = LowCut(freq=15.0, slope=10.0).plan(fs, precision=precision,
@@ -152,16 +167,42 @@ def run(other: Path, new_code: bool = False) -> list[str]:
     lines.append("outputs byte-identical in every turn ("
                  + ", ".join(turns[0]["sha"]) + "); ptxas lines "
                  + ("equal" if same else "differ (other, this)"))
+    # Each checkout's two turns must agree; without --new-code the two
+    # checkouts too.
+    within = ((turns[0], turns[3]), (turns[1], turns[2]))
+    across = within if new_code else tuple((turns[0], t) for t in turns)
     p18 = [t["ptxas18"] for t in turns]
-    if not p18[0] or any(p != p18[0] for p in p18):
+    if not p18[0] or any(a["ptxas18"] != b["ptxas18"] for a, b in across):
         raise RuntimeError("the 2^18 instantiations' ptxas reports differ "
                            f"between the turns (or none was found):\n{p18}")
     s18 = [t["sass18"] for t in turns]
-    lines.append(f"the {len(p18[0])} kernels at B = 2^18 (512 x 512): ptxas "
-                 "reports equal in every turn; SASS "
-                 + ("not compared (no cuobjdump)" if None in s18 else
-                    "equal in every turn" if all(x == s18[0] for x in s18)
-                    else "differs between the turns"))
+    if None in s18:
+        sass_said = "SASS not compared (no cuobjdump)"
+    elif all(a["sass18"] == b["sass18"] for a, b in across):
+        sass_said = ("SASS equal in every turn" if s18[0] == s18[1]
+                     else "SASS equal in each checkout's two turns")
+    else:
+        sass_said = "SASS differs between the turns"
+    if p18[0] == p18[1] and s18[0] == s18[1]:
+        lines.append(f"the {len(p18[0])} kernels at B = 2^18 (512 x 512): ptxas "
+                     f"reports equal in every turn; {sass_said}")
+    else:
+        # --new-code: kernel by kernel, this checkout against the other.
+        (po, so), (pt, st) = (p18[0], s18[0] or {}), (p18[1], s18[1] or {})
+        both = set(po) & set(pt)
+        same = sorted(k for k in both if po[k] == pt[k] and so.get(k) == st.get(k))
+        lines.append(
+            f"the kernels at B = 2^18 (512 x 512), this checkout against the "
+            f"other ({sass_said}): equal in ptxas and SASS {same}; differ "
+            f"{sorted(both - set(same))}; only in the other "
+            f"{sorted(set(po) - set(pt))}; only in this {sorted(set(pt) - set(po))}")
+    blocks = [t["blocks"] for t in turns]
+    if any(a["blocks"] != b["blocks"] for a, b in across):
+        raise RuntimeError(f"the block path differs between the turns: {blocks}")
+    lines.append("the block path (conv_blocks): ptxas line and SASS "
+                 + ("equal in every turn" if blocks[0] == blocks[1]
+                    else f"differ (other, this): {blocks[0]}, {blocks[1]}")
+                 + ("" if blocks[0]["sass"] else " (SASS not compared: no cuobjdump)"))
     return lines
 
 

@@ -155,6 +155,8 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     asked = []
     monkeypatch.setattr(sf, "pass1_occupancy", lambda *a: (
         asked.append(a), {"resident_ctas": 12, "ring_depth": 2})[1])
+    monkeypatch.setattr(sf, "pass2_occupancy", lambda *a: (
+        asked.append(("pass 2", *a)), {"resident_ctas": 0, "ring_depth": 0})[1])
     plan = _small_plan("fast")
     x = torch.zeros((2, 50_000))
     before = (dict(sf.launches), dict(sf.kernels))
@@ -182,22 +184,25 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     assert prep["info"] == {"scratch_bytes": args[-2] * plan.block_size * 8}
     # B = 1024 is 32 x 32: pass 1 walks 4 tiles of 8 columns a pair and
     # cuts its grid to the resident CTAs, which the library reckons; the
-    # span carries the split and the ring depth the library reports.
+    # span carries the split and the ring depths the library reports.
     assert Pass1("f32", 5, 5).tiles == 4
-    assert asked == [("f32", plan.block_size, 0)]
+    assert asked == [("f32", plan.block_size, 0), ("pass 2", "f32", plan.block_size, 0)]
     assert launch["info"] == {"chunks": chunks, "kernels": 3 * chunks,
                               "log_n1": 5, "log_n2": 5, "pairs": pairs,
-                              "chunk_pairs": 4, "pass1_ring": 2}
+                              "chunk_pairs": 4, "pass1_ring": 2, "pass2_ring": 0}
 
 
 @pytest.mark.parametrize("precision,i16", [("high", False), ("fast", False),
                                            ("fast", True)])
 def test_the_launch_span_holds_only_what_the_host_decided_and_the_ring(
         monkeypatch, precision, i16):
-    # In every mode: the host's chunking and split, and pass 1's ring depth
-    # as the library reports it; nothing of the compiled launch geometry.
+    # In every mode: the host's chunking and split, and the ring depths of
+    # passes 1 and 2 as the library reports them; nothing of the compiled
+    # launch geometry.
     _fake_card(monkeypatch, _FakeEntry())
     monkeypatch.setattr(sf, "pass1_occupancy", lambda *a: {
+        "resident_ctas": 132, "ring_depth": 1})
+    monkeypatch.setattr(sf, "pass2_occupancy", lambda *a: {
         "resident_ctas": 132, "ring_depth": 1})
     plan = _small_plan(precision)
     x = torch.zeros((2, 5000), dtype=torch.int16 if i16 else torch.float32)
@@ -205,7 +210,7 @@ def test_the_launch_span_holds_only_what_the_host_decided_and_the_ring(
         sf._launch(x, plan, plan.mo2, 5000, i16)
     (launch,) = [s for s in spans.spans() if s["name"] == "segment.launch"]
     assert set(launch["info"]) == {"chunks", "kernels", "pairs", "chunk_pairs",
-                                   "log_n1", "log_n2", "pass1_ring"}
+                                   "log_n1", "log_n2", "pass1_ring", "pass2_ring"}
 
 
 @pytest.mark.parametrize("freq,slope,split,pairs,chunk,ring", [
@@ -223,6 +228,8 @@ def test_the_launch_span_names_the_split_it_ran(monkeypatch, freq, slope, split,
     _fake_card(monkeypatch, entry)
     monkeypatch.setattr(sf, "pass1_occupancy", lambda *a: {
         "resident_ctas": 132, "ring_depth": ring})
+    monkeypatch.setattr(sf, "pass2_occupancy", lambda *a: {
+        "resident_ctas": 132, "ring_depth": ring})
     plan = LowCut(freq=freq, slope=slope).plan(96000.0, precision="high",
                                                device="cpu")
     assert sf.split(plan.block_size) == split
@@ -233,8 +240,8 @@ def test_the_launch_span_names_the_split_it_ran(monkeypatch, freq, slope, split,
     (launch,) = [s for s in spans.spans() if s["name"] == "segment.launch"]
     info = launch["info"]
     assert (info["log_n1"], info["log_n2"]) == split
-    assert (info["pairs"], info["chunk_pairs"], info["pass1_ring"]) == \
-        (pairs, chunk, ring)
+    assert (info["pairs"], info["chunk_pairs"], info["pass1_ring"],
+            info["pass2_ring"]) == (pairs, chunk, ring, ring)
     assert info["pairs"] == sf.call_pairs(2, x.shape[1], plan.hop)
     # Pass 1's items (pair, column tile) in the tests' model: 64 or 128
     # tiles a pair.
