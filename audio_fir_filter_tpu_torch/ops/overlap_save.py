@@ -312,7 +312,7 @@ def _filter(x, plan: OverlapSavePlan, left: int, out_len: int | None):
         n = x.shape[1] if out_len is None else out_len
         if s:
             s.set(engine=plan.engine, precision=plan.precision,
-                  channels=x.shape[0], frames=n)
+                  channels=x.shape[0], frames=n, sample_bytes=x.element_size())
         y, peak = _filter_peak(x, plan, left, n)
     return (y[0] if squeeze else y), peak
 

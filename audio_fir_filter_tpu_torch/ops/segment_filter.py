@@ -400,11 +400,12 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     (``csrc/probe_segment.cu``, which adds a variant id). ``prep``, the
     caller's open ``segment.prepare`` span, gets the scratch bytes and ends
     here; the entry point is called in the span ``segment.launch``, which
-    gets what the host decided: the chunks, the kernels, the split
-    (``log_n1``, ``log_n2``), the pairs the call filters (``pairs``) and a
-    chunk holds (``chunk_pairs``); and what the library reports: the ring
-    depths of pass 1 and pass 2 (``pass1_ring``, ``pass2_ring``, 0 without
-    a ring; :func:`pass1_occupancy`, :func:`pass2_occupancy`).
+    gets what the host decided: the kernel mode (``mode``: ``f32``,
+    ``f64`` or ``i16``, the entry's suffix), the chunks, the kernels, the
+    split (``log_n1``, ``log_n2``), the pairs the call filters (``pairs``)
+    and a chunk holds (``chunk_pairs``); and what the library reports: the
+    ring depths of pass 1 and pass 2 (``pass1_ring``, ``pass2_ring``, 0
+    without a ring; :func:`pass1_occupancy`, :func:`pass2_occupancy`).
     Returns the kernels it launched; raises if the launch failed."""
     from . import _build
 
@@ -427,7 +428,7 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     with spans.span("segment.launch") as s, torch.cuda.device(dev):
         if s:
             mode, card = entry.rsplit("_", 1)[1], dev.index or 0
-            s.set(chunks=chunks, kernels=KERNELS_PER_CHUNK * chunks,
+            s.set(mode=mode, chunks=chunks, kernels=KERNELS_PER_CHUNK * chunks,
                   log_n1=l1, log_n2=l2, pairs=pairs, chunk_pairs=chunk,
                   pass1_ring=pass1_occupancy(mode, b, card)["ring_depth"],
                   pass2_ring=pass2_occupancy(mode, b, card)["ring_depth"])

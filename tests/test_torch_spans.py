@@ -87,7 +87,7 @@ def test_spans_nest_under_a_profiler_and_show_in_its_trace(tmp_path):
     # Each filter call is a call of its own, with what it filtered.
     assert f1["parent"] is None and f1["call"] == f1["id"] != f2["call"]
     assert f1["info"] == {"engine": "pallas", "precision": "high", "channels": 2,
-                          "frames": 3000}
+                          "frames": 3000, "sample_bytes": 4}
     assert f2["info"]["channels"] == 1 and f2["info"]["frames"] == 3000
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
@@ -187,7 +187,7 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     # span carries the split and the ring depths the library reports.
     assert Pass1("f32", 5, 5).tiles == 4
     assert asked == [("f32", plan.block_size, 0), ("pass 2", "f32", plan.block_size, 0)]
-    assert launch["info"] == {"chunks": chunks, "kernels": 3 * chunks,
+    assert launch["info"] == {"mode": "f32", "chunks": chunks, "kernels": 3 * chunks,
                               "log_n1": 5, "log_n2": 5, "pairs": pairs,
                               "chunk_pairs": 4, "pass1_ring": 2, "pass2_ring": 0}
 
@@ -196,9 +196,9 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
                                            ("fast", True)])
 def test_the_launch_span_holds_only_what_the_host_decided_and_the_ring(
         monkeypatch, precision, i16):
-    # In every mode: the host's chunking and split, and the ring depths of
-    # passes 1 and 2 as the library reports them; nothing of the compiled
-    # launch geometry.
+    # In every mode: the kernel mode, the host's chunking and split, and
+    # the ring depths of passes 1 and 2 as the library reports them;
+    # nothing of the compiled launch geometry.
     _fake_card(monkeypatch, _FakeEntry())
     monkeypatch.setattr(sf, "pass1_occupancy", lambda *a: {
         "resident_ctas": 132, "ring_depth": 1})
@@ -209,8 +209,10 @@ def test_the_launch_span_holds_only_what_the_host_decided_and_the_ring(
     with spans.recording():
         sf._launch(x, plan, plan.mo2, 5000, i16)
     (launch,) = [s for s in spans.spans() if s["name"] == "segment.launch"]
-    assert set(launch["info"]) == {"chunks", "kernels", "pairs", "chunk_pairs",
+    assert set(launch["info"]) == {"mode", "chunks", "kernels", "pairs", "chunk_pairs",
                                    "log_n1", "log_n2", "pass1_ring", "pass2_ring"}
+    assert launch["info"]["mode"] == {("high", False): "f64", ("fast", False): "f32",
+                                      ("fast", True): "i16"}[precision, i16]
 
 
 @pytest.mark.parametrize("freq,slope,split,pairs,chunk,ring", [
@@ -277,8 +279,8 @@ def test_the_16bit_route_records_a_filter_span_a_segment(segment_len, frames):
     got = spans.spans()
     assert [s["name"] for s in got] == ["filter"] * len(frames)
     assert [s["info"] for s in got] == [
-        {"engine": "pallas", "precision": "fast", "channels": 2, "frames": f}
-        for f in frames]
+        {"engine": "pallas", "precision": "fast", "channels": 2, "frames": f,
+         "sample_bytes": 2} for f in frames]
 
 
 def _wav(path, seed=3):
