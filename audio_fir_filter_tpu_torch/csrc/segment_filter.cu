@@ -67,7 +67,12 @@
 // (pair, row tile) items and bring the next item's rows into a two-stage
 // ring by one bulk copy each, the stage then the item's exchange tile:
 // 3.56 us a pair at 2^18, 7.33 at 2^19 (8.46 before). The f32 and i16 row
-// pass keeps rows_multiply. fourstep.cuh holds the FFT engine, the
+// pass keeps rows_multiply. Pass 3 in f64 is persistent too
+// (segment_filter.cuh Pass3): one 512-thread CTA an SM takes its (pair,
+// column tile) items from a counter and brings the next item's tile into
+// a two-stage ring by 2-D tensor-map copies: 2.29-2.30 us a pair at 2^18
+// (2.81 before), 6.24-6.27 at 2^19 (7.40-7.43). f32 and i16 keep
+// cols_inverse. fourstep.cuh holds the FFT engine, the
 // passes' shared halves and rows_multiply (shared with conv_blocks.cu),
 // and says why tensor cores are not used; segment_filter.cuh holds the
 // signal gather, the valid-hop scatter, the peak, pass 2's ring and the
@@ -124,6 +129,13 @@ int pass1_occupancy_of(int log_n1, int log_n2, int* out) {
   });
 }
 
+template <typename T, typename IO>
+int pass3_occupancy_of(int log_n1, int log_n2, int* out) {
+  return with_split(log_n1, log_n2, [&](auto sp) {
+    return pass3_occupancy<T, IO, decltype(sp)>(out);
+  });
+}
+
 template <typename T>
 int pass2_occupancy_of(int log_n1, int log_n2, int* out) {
   return with_split(log_n1, log_n2, [&](auto sp) {
@@ -135,7 +147,9 @@ int pass2_occupancy_of(int log_n1, int log_n2, int* out) {
 
 // Plain C entry points (bound with ctypes). Each launches on `stream`,
 // allocates nothing, does not synchronize, and returns cudaGetLastError().
-// `peak` is one float the caller zeroed; scratch holds chunk_pairs * B
+// `peak` is three 32-bit words the caller zeroed: the peak (a float), then
+// pass 3's item counter and count of finished CTAs (segment_filter.cuh
+// Pass3), which the call leaves zero; scratch holds chunk_pairs * B
 // complex values of the compute type.
 #define LOWCUT_ENTRY(NAME, T, IO)                                             \
   extern "C" int NAME(const void* x, void* y, void* peak, const void* H,     \
@@ -178,6 +192,21 @@ extern "C" int lowcut_segment_pass2_occupancy(int mode, int log_n1, int log_n2,
     case 0:
     case 2: return pass2_occupancy_of<float>(log_n1, log_n2, o);
     case 1: return pass2_occupancy_of<double>(log_n1, log_n2, o);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Pass 3 of one mode (0 f32, 1 f64, 2 i16) at one split: out[8] ints, [CTAs
+// per SM, threads, dynamic shared bytes, registers, local-memory bytes,
+// ring depth (0: cols_inverse, no ring), column tiles a pair, resident
+// CTAs (0 without a ring)].
+extern "C" int lowcut_segment_pass3_occupancy(int mode, int log_n1, int log_n2,
+                                              void* out) {
+  int* o = static_cast<int*>(out);
+  switch (mode) {
+    case 0: return pass3_occupancy_of<float, float>(log_n1, log_n2, o);
+    case 1: return pass3_occupancy_of<double, float>(log_n1, log_n2, o);
+    case 2: return pass3_occupancy_of<float, int16_t>(log_n1, log_n2, o);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,13 @@
 // The segment kernel's column passes (pass 1 with its signal gather, pass 3
-// with its valid-hop scatter and peak), the persistent form of pass 2
-// (rows_multiply_ring) and its launch loop, shared by segment_filter.cu,
-// which instantiates the defaults (the shipped kernel), and
-// probe_segment.cu, which instantiates the ablation variants to time the
-// code that ships. fourstep.cuh holds the FFT engine and pass 2 with one
-// CTA an item (rows_multiply, and the per-row body both forms share);
-// tma.cuh the bulk copies and mbarriers of pass 2's ring; segment_filter.cu
-// says what the kernel computes and what bounds it. Internal linkage, as
+// with its valid-hop scatter and peak, and pass 3's persistent form,
+// cols_inverse_ring), the persistent form of pass 2 (rows_multiply_ring)
+// and its launch loop, shared by segment_filter.cu, which instantiates the
+// defaults (the shipped kernel), and probe_segment.cu, which instantiates
+// the ablation variants to time the code that ships. fourstep.cuh holds
+// the FFT engine and pass 2 with one CTA an item (rows_multiply, and the
+// per-row body both forms share); tma.cuh the bulk and tile copies and
+// mbarriers of the rings of passes 2 and 3; segment_filter.cu says what
+// the kernel computes and what bounds it. Internal linkage, as
 // fourstep.cuh.
 
 #pragma once
@@ -16,6 +17,7 @@
 
 #include "fourstep.cuh"
 #include "tma.cuh"
+
 
 namespace {
 
@@ -328,7 +330,48 @@ cols_forward(const IO* __restrict__ x, Cx<T>* __restrict__ scratch,
   }
 }
 
-// Pass 3: inverse column FFTs, valid-position write-out, fused peak.
+// Pass 3's write-out of one item: v holds column c0 + w of the item's pair
+// at rows pos<0>(t, m) in natural order, unscaled; yc is the pair's channel
+// of y and base0 the out index of its row 0. Scales by 1/B, writes the
+// valid positions of both windows and returns their largest |value|.
+template <typename T, typename IO, class S, class A>
+__device__ __forceinline__ float cols_inverse_scatter(
+    const Cx<T> (&v)[Fft<T, S::kLog1>::kE], IO* yc, long long base0,
+    const Geometry& g, int c0, int t, int w) {
+  using F = Fft<T, S::kLog1>;
+  const T scale = T(1) / static_cast<T>(S::kB);
+  float pk = 0.0f;
+#pragma unroll
+  for (int m = 0; m < F::kE; ++m) {
+    const long long n = (long long)F::template pos<0>(t, m) * S::kN2 + c0 + w;
+    if (n < g.m) continue;
+    const long long o0 = base0 + n, o1 = o0 + g.hop;
+    T re = v[m].re, im = v[m].im;
+    if constexpr (A::kArith) {
+      re *= scale;
+      im *= scale;
+    }
+    if (o0 < g.out_len) pk = fmaxf(pk, store_sample<A::kStore>(yc + o0, re));
+    if (o1 < g.out_len) pk = fmaxf(pk, store_sample<A::kStore>(yc + o1, im));
+  }
+  return pk;
+}
+
+// The CTA's peak: a warp maximum, then one atomicMax a warp. A CTA
+// narrower than a warp (the smallest sides) reduces over its own lanes only.
+template <int kThreads>
+__device__ __forceinline__ void peak_max(float pk, unsigned int* peak_bits) {
+  constexpr int kLanes = kThreads < 32 ? kThreads : 32;
+  constexpr unsigned kMask = kLanes == 32 ? 0xffffffffu : (1u << kLanes) - 1u;
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    pk = fmaxf(pk, __shfl_xor_sync(kMask, pk, off));
+  if ((threadIdx.x & 31) == 0 && pk > 0.0f)
+    atomicMax(peak_bits, __float_as_uint(pk));
+}
+
+// Pass 3: inverse column FFTs, valid-position write-out, fused peak; one
+// CTA an item (column tile blockIdx.x of pair blockIdx.y).
 template <typename T, typename IO, class S, class A = Shipped>
 __global__ void __launch_bounds__(Cols<T, S>::kThreads, Cols<T, S>::kMinBlocks)
 cols_inverse(const Cx<T>* __restrict__ scratch, IO* __restrict__ y,
@@ -351,32 +394,10 @@ cols_inverse(const Cx<T>* __restrict__ scratch, IO* __restrict__ y,
       v, tab + F::kTableElems + w, F::kGlobalTw ? w1 : tab,
       scratch + (size_t)blockIdx.y * S::kB, tw4, c0, t, w);
 
-  const T scale = T(1) / static_cast<T>(S::kB);
   IO* yc = y + ch * g.out_len;
   const long long base0 = 2 * k * g.hop - g.m;  // out index of position n
-  float pk = 0.0f;
-#pragma unroll
-  for (int m = 0; m < F::kE; ++m) {
-    const long long n = (long long)F::template pos<0>(t, m) * S::kN2 + c0 + w;
-    if (n < g.m) continue;
-    const long long o0 = base0 + n, o1 = o0 + g.hop;
-    T re = v[m].re, im = v[m].im;
-    if constexpr (A::kArith) {
-      re *= scale;
-      im *= scale;
-    }
-    if (o0 < g.out_len) pk = fmaxf(pk, store_sample<A::kStore>(yc + o0, re));
-    if (o1 < g.out_len) pk = fmaxf(pk, store_sample<A::kStore>(yc + o1, im));
-  }
-  // Warp maximum; a CTA narrower than a warp (the smallest sides) reduces
-  // over its own lanes only.
-  constexpr int kLanes = C::kThreads < 32 ? C::kThreads : 32;
-  constexpr unsigned kMask = kLanes == 32 ? 0xffffffffu : (1u << kLanes) - 1u;
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1)
-    pk = fmaxf(pk, __shfl_xor_sync(kMask, pk, off));
-  if ((threadIdx.x & 31) == 0 && pk > 0.0f)
-    atomicMax(peak_bits, __float_as_uint(pk));
+  const float pk = cols_inverse_scatter<T, IO, S, A>(v, yc, base0, g, c0, t, w);
+  peak_max<C::kThreads>(pk, peak_bits);
 }
 
 // Pass 2's items: item = local pair * kTiles + row tile, kTiles tiles of
@@ -512,6 +533,219 @@ rows_multiply_ring(Cx<T>* __restrict__ scratch, const Cx<T>* __restrict__ H,
   }
 }
 
+// Pass 3's items, as pass 1's: item = local pair * kTiles + column tile.
+//
+// Where Cols aims at one CTA an SM (kMinBlocks == 1, the rule of Pass1:
+// f64 from 512-point columns), cols_inverse's CTA loaded its tile from the
+// scratch, transformed it and stored y with nothing beside it on the SM,
+// so the scratch reads (two thirds of the pass's bytes) waited behind the
+// transform. There the pass is persistent: the resident CTAs take items
+// one at a time from a counter (the chunk's next item, an atomicAdd by
+// thread 0 of a CTA), build their twiddle tables once, and bring each
+// item's tile into a ring of kDepth shared-memory stages kDepth - 1 items
+// ahead of the one they transform. Thread 0 fills a stage with kBoxes
+// 2-D tile copies through a tensor map of the chunk's scratch, seen as
+// [pairs * N1 rows, 2 * N2 reals] (tma.cuh tile_load: boxes of kBoxRows
+// rows of the tile's kW columns), that complete on the stage's mbarrier,
+// and notes the stage's item beside the barriers (-1: none left); a stage
+// is the tile row-major, element (p, w) at p * kW + w. The threads read
+// their registers from it at pos<kFirst>(t, m), where cols_inverse_load
+// reads the scratch, take the conjugate twiddle as it does, and the stage
+// then is the item's exchange tile. It is refilled at the start of the
+// item after the one that used it, past a barrier that follows every
+// thread's last exchange, each thread's exchange writes fenced from the
+// copies' (async proxy) ones. The y stores, the scale and each column's
+// arithmetic are cols_inverse's; a thread keeps one running peak over its
+// items, reduced once a CTA.
+//
+// Why the counter, not Pass2's fixed walk (CTA b takes b, b + G, ...):
+// the CTAs run at different speeds, and with a fixed walk the last one
+// ends the pass late and neighbouring tiles' y (16 bytes a row at
+// 1024-point columns, half a sector) reach the L2 far apart. At (10, 9)
+// the fixed walk took 8.3-9.2 us a pair against cols_inverse's 7.4;
+// groups of 2-8 neighbouring tiles a CTA 11.5-14.2; the counter 6.24-6.27
+// (and 2.29-2.30 against 2.81 at (9, 9); PERF.md). The counter and
+// a count of finished CTAs are the two words after the peak's, which the
+// caller zeroes; the last CTA to finish zeroes them again for the next
+// chunk's launch.
+//
+// kDepth is what a CTA's shared memory holds beside the tables, at most 2
+// (two 64 KB stages and the tables at 512- and 1024-point columns, the
+// shared bytes of pass 1's ring; 1 at 8192-point columns in f64: the same
+// loop, unpipelined); 0 where Cols aims at two or more CTAs an SM (f32 and
+// i16; f64 below 512-point columns) or a tile's row is not a multiple of
+// 16 bytes, which a box's rows must be (f32 at 8192-point columns, one
+// column a tile): there cols_inverse runs as it is, one CTA an item.
+template <typename T, typename IO, class S>
+struct Pass3 {
+  using C = Cols<T, S>;
+  using F = typename C::F;
+  static constexpr int kTiles = S::kN2 / C::kW, kLogTiles = ilog2(kTiles);
+  static constexpr int kStageElems = C::kW * F::kL;  // the exchange tile
+  static constexpr size_t kStageBytes = sizeof(Cx<T>) * (size_t)kStageElems;
+  static constexpr size_t kRowBytes = sizeof(Cx<T>) * (size_t)C::kW;
+  static constexpr int kBoxRows = cmin(256, F::kL);  // TMA's box limit
+  static constexpr int kBoxes = F::kL / kBoxRows;
+  // The stages first (128-byte aligned for the tile copies), then the
+  // tables, then one mbarrier and one item a stage (at most 2 each).
+  static constexpr size_t kTableBytes = sizeof(Cx<T>) * (size_t)F::kTableElems;
+  static constexpr size_t kBarBytes = 32;
+  static constexpr int kDepth =
+      C::kMinBlocks > 1 || kRowBytes % 16
+          ? 0
+          : cclamp((int)((kCtaSmemMax - kTableBytes - kBarBytes) / kStageBytes),
+                   1, 2);
+  static constexpr size_t kTabOff = (size_t)kDepth * kStageBytes;
+  static constexpr size_t kBarOff = kTabOff + kTableBytes;
+  static constexpr size_t kSmem = kDepth ? kBarOff + kBarBytes : C::kSmem;
+  static_assert(kDepth == 0 || (kSmem <= kCtaSmemMax && kBarOff % 8 == 0 &&
+                                kStageBytes < (1u << 20)),
+                "the ring must fit a CTA; a stage is one expect_tx");
+
+  // The next item from the chunk's counter, or -1 past the last (thread 0).
+  __device__ static __forceinline__ long long take(unsigned int* next,
+                                                   long long items) {
+    const long long it = atomicAdd(next, 1u);
+    return it < items ? it : -1;
+  }
+
+  // Start the copies of item `it`'s tile into stage st (thread 0): the
+  // boxes through the map, or with kStrided off (the tile one contiguous
+  // run of the scratch) one 1-D bulk copy.
+  template <bool kStrided>
+  __device__ static __forceinline__ void load(Cx<T>* st, const CUtensorMap* map,
+                                              const Cx<T>* scratch, long long it,
+                                              Bar* bar) {
+    const long long pl = it >> kLogTiles;
+    const int c0 = (int)(it & (kTiles - 1)) * C::kW;
+    mbar_expect_tx(bar, (unsigned)kStageBytes);
+    if constexpr (kStrided) {
+#pragma unroll
+      for (int h = 0; h < kBoxes; ++h)
+        tile_load(st + h * kBoxRows * C::kW, map, 2 * c0,
+                  (int)(pl * F::kL) + h * kBoxRows, bar);
+    } else {
+      bulk_load(st, scratch + pl * S::kB + (size_t)c0 * S::kN1,
+                (unsigned)kStageBytes, bar);
+    }
+  }
+};
+
+// Pass 3 through the ring (Pass3, kDepth > 0): the chunk's `items` (pair,
+// column tile) items, each times the conjugate twiddle, inverse column
+// FFT, write-out and peak as cols_inverse. smap: the chunk's scratch as
+// Pass3 tiles it (scratch itself is read only with kStrided off);
+// peak_bits[1], [2]: the item counter and the finished CTAs, zero at the
+// start and left zero at the end. Grid: pass_grid.
+template <typename T, typename IO, class S, class A = Shipped>
+__global__ void __launch_bounds__(Cols<T, S>::kThreads, Cols<T, S>::kMinBlocks)
+cols_inverse_ring(const __grid_constant__ CUtensorMap smap,
+                  const Cx<T>* __restrict__ scratch, IO* __restrict__ y,
+                  unsigned int* __restrict__ peak_bits,
+                  const Cx<T>* __restrict__ tw4, const Cx<T>* __restrict__ w1,
+                  Geometry g, long long items) {
+  using C = Cols<T, S>;
+  using F = typename C::F;
+  using P = Pass3<T, IO, S>;
+  constexpr int kD = P::kDepth;
+  constexpr int kFirst = A::kArith ? F::kStages - 1 : 0;
+  constexpr bool kFactored = A::kArith && A::kTw4 && Twiddle<T, S>::kFactored;
+  // The dynamic shared memory, as every kernel's smem_raw, named apart for
+  // the tile copies' 128-byte alignment.
+  extern __shared__ __align__(128) unsigned char ring_raw[];
+  Cx<T>* ring = reinterpret_cast<Cx<T>*>(ring_raw);
+  Cx<T>* tab = reinterpret_cast<Cx<T>*>(ring_raw + P::kTabOff);
+  Bar* bar = reinterpret_cast<Bar*>(ring_raw + P::kBarOff);
+  long long* held = reinterpret_cast<long long*>(bar + 2);  // a stage's item
+  unsigned int* next = peak_bits + 1;
+  const int tid = threadIdx.x, w = tid & (C::kW - 1), t = tid >> C::kLogW;
+  const Cx<T>* tw = F::kGlobalTw ? w1 : tab;
+  // The first kD - 1 items' copies go out before the tables are built,
+  // which happens once a CTA.
+  if (tid == 0) {
+#pragma unroll
+    for (int d = 0; d < kD; ++d) mbar_init(&bar[d], 1);
+    mbar_init_fence();
+#pragma unroll
+    for (int d = 0; d < kD - 1; ++d) {
+      held[d] = P::take(next, items);
+      if (held[d] >= 0)
+        P::template load<A::kStrided>(ring + d * P::kStageElems, &smap, scratch,
+                                      held[d], &bar[d]);
+    }
+  }
+  if constexpr (A::kArith) F::build_table(tab, w1, tid, C::kThreads);
+  float pk = 0.0f;
+  int stage = 0;
+  unsigned phase = 0;
+  for (;;) {
+    // Take and start the next item into the stage used one item ago (the
+    // tables before the first item), then wait for this item's.
+    fence_async_shared();
+    __syncthreads();
+    if (tid == 0) {
+      const int fill = stage == 0 ? kD - 1 : stage - 1;
+      held[fill] = P::take(next, items);
+      if (held[fill] >= 0)
+        P::template load<A::kStrided>(ring + fill * P::kStageElems, &smap,
+                                      scratch, held[fill], &bar[fill]);
+    }
+    // With one stage the item just taken is this one.
+    if constexpr (kD == 1) __syncthreads();
+    const long long it = held[stage];
+    if (it < 0) break;  // and so is every later take
+    const long long p = g.pair0 + (it >> P::kLogTiles);
+    const long long ch = p / g.pairs_per_ch, k = p % g.pairs_per_ch;
+    const int c0 = (int)(it & (P::kTiles - 1)) * C::kW;
+    Cx<T>* s = ring + stage * P::kStageElems + w;
+    // Register m's conjugate twiddle first, so its loads run while the
+    // stage lands; then its value from the stage, times that twiddle.
+    Cx<T> v[F::kE];
+    [[maybe_unused]] const ColTwiddle<T, S, kFactored> ft(tw4, t, c0 + w);
+#pragma unroll
+    for (int m = 0; m < F::kE; ++m) {
+      const int q = F::template pos<kFirst>(t, m);
+      if constexpr (kFactored) {
+        v[m] = ft(m);
+      } else if constexpr (A::kArith && A::kTw4) {
+        v[m] = tw4[(size_t)q * S::kN2 + c0 + w];
+      } else if constexpr (A::kArith) {
+        v[m] = opaque_unit<T>(tw4);
+      }
+    }
+    mbar_wait(&bar[stage], phase);
+#pragma unroll
+    for (int m = 0; m < F::kE; ++m) {
+      const Cx<T> a = s[F::template pos<kFirst>(t, m) * C::kW];
+      if constexpr (A::kArith) {
+        v[m] = cmulc(a, v[m]);
+      } else {
+        v[m] = a;
+      }
+    }
+    if constexpr (A::kArith) {
+      __syncthreads();  // every thread's reads of the stage (the tables too)
+      F::template inverse<C::kW, false>(v, s, tw, t);
+    }
+    pk = fmaxf(pk, cols_inverse_scatter<T, IO, S, A>(
+                       v, y + ch * g.out_len, 2 * k * g.hop - g.m, g, c0, t, w));
+    if (++stage == kD) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  peak_max<C::kThreads>(pk, peak_bits);
+  // Every CTA has taken its last item; the last to get here zeroes the
+  // counters for the next launch.
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(peak_bits + 2, 1u) == gridDim.x - 1) {
+      next[0] = 0;
+      peak_bits[2] = 0;
+    }
+  }
+}
+
 // CTAs of a persistent pass the card holds at once (tma.cuh resident_ctas;
 // at least 1); asked once a process for each instantiation, after its
 // shared-memory limit is raised.
@@ -531,6 +765,16 @@ int pass2_resident() {
     int ctas = 0;
     resident_ctas(rows_multiply_ring<T, S, kRows>, Pass2<T, S>::kThreads,
                   Pass2<T, S>::kSmem, &ctas);
+    return ctas > 0 ? ctas : 1;
+  }();
+  return n;
+}
+template <typename T, typename IO, class S, class A>
+int pass3_resident() {
+  static const int n = [] {
+    int ctas = 0;
+    resident_ctas(cols_inverse_ring<T, IO, S, A>, Cols<T, S>::kThreads,
+                  Pass3<T, IO, S>::kSmem, &ctas);
     return ctas > 0 ? ctas : 1;
   }();
   return n;
@@ -581,6 +825,53 @@ void pass2_launch(Cx<T>* sc, const Cx<T>* H, const Cx<T>* w2, long long np,
   }
 }
 
+// Pass 3's kernel and its shared bytes: cols_inverse without a ring, else
+// cols_inverse_ring (only the one that runs is instantiated).
+template <typename T, typename IO, class S, class A>
+SmemLimit pass3_kernel() {
+  if constexpr (Pass3<T, IO, S>::kDepth == 0) {
+    return {cols_inverse<T, IO, S, A>, Cols<T, S>::kSmem};
+  } else {
+    return {cols_inverse_ring<T, IO, S, A>, Pass3<T, IO, S>::kSmem};
+  }
+}
+
+// Pass 3 on a chunk of np pairs: cols_inverse with one CTA an item (tiles
+// x pairs), or cols_inverse_ring on pass_grid through smap.
+template <typename T, typename IO, class S, class A>
+void pass3_launch(const CUtensorMap& smap, const Cx<T>* sc, IO* y,
+                  unsigned int* pk, const Cx<T>* tw4, const Cx<T>* w1,
+                  const Geometry& g, long long np, cudaStream_t stream) {
+  using P = Pass3<T, IO, S>;
+  constexpr int kThreads = Cols<T, S>::kThreads;
+  if constexpr (P::kDepth == 0) {
+    cols_inverse<T, IO, S, A>
+        <<<dim3(P::kTiles, (unsigned)np), kThreads, P::kSmem, stream>>>(
+            sc, y, pk, tw4, w1, g);
+  } else {
+    const long long items = np * P::kTiles;
+    cols_inverse_ring<T, IO, S, A>
+        <<<pass_grid(items, pass3_resident<T, IO, S, A>()), kThreads, P::kSmem,
+           stream>>>(smap, sc, y, pk, tw4, w1, g, items);
+  }
+}
+
+// The tensor map pass 3's ring reads the scratch through: its chunk_pairs
+// pairs as [chunk_pairs * N1 rows, 2 * N2 reals], in boxes of Pass3's
+// kBoxRows rows of one tile's 2 * kW reals. Encoded for each call (the
+// scratch is allocated for each); nothing without a ring, or with the
+// tile one contiguous run (kStrided off).
+template <typename T, typename IO, class S, class A>
+cudaError_t pass3_map(CUtensorMap* smap, const Cx<T>* sc, long long chunk_pairs) {
+  using P = Pass3<T, IO, S>;
+  if constexpr (P::kDepth == 0 || !A::kStrided) {
+    return cudaSuccess;
+  } else {
+    return tile_map<T>(smap, sc, (unsigned long long)chunk_pairs * S::kN1,
+                       2ull * S::kN2, P::kBoxRows, 2 * Cols<T, S>::kW);
+  }
+}
+
 // The three passes over `total` pairs, chunk_pairs at a time through the
 // scratch.
 template <typename T, typename IO, class S, class A = Shipped>
@@ -588,22 +879,21 @@ int run_split(const IO* x, IO* y, unsigned int* pk, const Cx<T>* H,
               const Cx<T>* tw4, const Cx<T>* w1, const Cx<T>* w2, Cx<T>* sc,
               Geometry g, long long total, long long chunk_pairs,
               cudaStream_t stream) {
-  using C = Cols<T, S>;
   using P = Pass1<T, IO, S>;
   cudaError_t err = allow_smem({{cols_forward<T, IO, S, A>, P::kSmem},
                                 pass2_kernel<T, S, A::kRows>(),
-                                {cols_inverse<T, IO, S, A>, C::kSmem}});
+                                pass3_kernel<T, IO, S, A>()});
+  CUtensorMap smap{};
+  if (err == cudaSuccess) err = pass3_map<T, IO, S, A>(&smap, sc, chunk_pairs);
   if (err != cudaSuccess) return err;
   for (long long p0 = 0; p0 < total; p0 += chunk_pairs) {
     const long long np = (total - p0) < chunk_pairs ? (total - p0) : chunk_pairs;
     g.pair0 = p0;
-    const dim3 grid_cols(S::kN2 / C::kW, (unsigned)np);
     cols_forward<T, IO, S, A>
-        <<<pass1_grid<T, IO, S, A>(np), C::kThreads, P::kSmem, stream>>>(
+        <<<pass1_grid<T, IO, S, A>(np), Cols<T, S>::kThreads, P::kSmem, stream>>>(
             x, sc, tw4, w1, g, np * P::kTiles);
     pass2_launch<T, S, A::kRows>(sc, H, w2, np, stream);
-    cols_inverse<T, IO, S, A><<<grid_cols, C::kThreads, C::kSmem, stream>>>(
-        sc, y, pk, tw4, w1, g);
+    pass3_launch<T, IO, S, A>(smap, sc, y, pk, tw4, w1, g, np, stream);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -640,6 +930,26 @@ int pass2_occupancy(int* out) {
   out[6] = P::kDepth ? P::kTiles : S::kN1 / Rows<T, S>::kR;
   if constexpr (P::kDepth > 0) {
     out[7] = pass2_resident<T, S, kRowsFull>();
+  } else {
+    out[7] = 0;
+  }
+  return err;
+}
+
+// Pass 3 at one split: occupancy()'s five numbers of the kernel that runs,
+// then the ring's depth (0: none, cols_inverse), the column tiles a pair
+// and the resident CTAs (0 without a ring).
+template <typename T, typename IO, class S>
+int pass3_occupancy(int* out) {
+  using P = Pass3<T, IO, S>;
+  const SmemLimit k = pass3_kernel<T, IO, S, Shipped>();
+  cudaError_t err = allow_smem({k});
+  if (err == cudaSuccess)
+    err = occupancy(k.kernel, Cols<T, S>::kThreads, k.bytes, out);
+  out[5] = P::kDepth;
+  out[6] = P::kTiles;
+  if constexpr (P::kDepth > 0) {
+    out[7] = pass3_resident<T, IO, S, Shipped>();
   } else {
     out[7] = 0;
   }

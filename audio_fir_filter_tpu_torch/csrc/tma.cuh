@@ -1,9 +1,10 @@
 // TMA bulk copies, mbarriers and the persistent grid on Hopper (sm_90a),
 // shared by the probes that stage data through shared memory
 // (probe_floors.cu bw_ring and copy_floor's cluster, probe_stages.cu
-// ring_chain) and by the shipped segment kernel's persistent pass 2
-// (segment_filter.cuh rows_multiply_ring: one 1-D bulk load a stage, and
-// resident_ctas). fourstep.cuh and the block path use none of this.
+// ring_chain) and by the shipped segment kernel's persistent passes 2 and
+// 3 (segment_filter.cuh rows_multiply_ring: one 1-D bulk load a stage;
+// cols_inverse_ring: 2-D tile loads through a tensor map; resident_ctas).
+// fourstep.cuh and the block path use none of this.
 //
 // A bulk copy (cp.async.bulk, 1-D; cp.async.bulk.tensor, a tile through a
 // tensor map) is issued by one thread and run by the TMA unit. A load

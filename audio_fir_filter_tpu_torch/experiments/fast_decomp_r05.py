@@ -125,14 +125,14 @@ def segment_ablation(x: torch.Tensor, plan, left: int, out_len: int,
           or out.device != dev or not out.is_contiguous()):
         raise ValueError(f"out must be contiguous [{c}, {out_len}] {x.dtype} "
                          f"on {dev}")
-    peak = torch.zeros((), dtype=torch.float32, device=dev)
+    words = sf.peak_words(dev)
     if c == 0 or out_len == 0:
-        return out, peak
+        return out, words[0]
     mode = sf.mode_of(plan, i16_io)
-    sf.run_entry("probe_segment", f"lowcut_probe_segment_{mode}", x, out, peak,
+    sf.run_entry("probe_segment", f"lowcut_probe_segment_{mode}", x, out, words,
                  plan, left, out_len, _ID[variant])
     launches[f"probe_segment_{mode}"] += 1
-    return out, peak
+    return out, words[0]
 
 
 # ------------------------------------------------------ plain versions
@@ -331,7 +331,7 @@ def verify(device="cuda") -> dict:
 
 
 # The variants whose passes run_passes times one by one, and the passes.
-PASS_VARIANTS = ("full", "no_tw4")
+PASS_VARIANTS = ("full", "no_store", "no_arith", "no_tw4")
 PASS_NAMES = ("cols_forward", "rows_multiply", "cols_inverse")
 
 
@@ -361,8 +361,8 @@ def variant_passes(x, plan, left: int, out_len: int, variant: str, i16: bool,
 def run(device="cuda", reps: int = 5, which=SHAPES, variants=VARIANTS) -> dict:
     """Every variant timed at each shape (``_probe.event_ms``, one reused
     output), with its traffic's GB/s and the differences; ``full`` bitwise
-    against the shipped kernel at the headline and the long call; ``full``
-    and ``no_tw4`` pass by pass (:func:`variant_passes`) at the headline
+    against the shipped kernel at the headline and the long call;
+    ``PASS_VARIANTS`` pass by pass (:func:`variant_passes`) at the headline
     and the long call; the three shipped passes under ``torch.profiler``
     at the headline; the plain version at the kernels line's shapes
     (headline f64 and f32, fast16 i16), and ``F.conv1d`` at the headline

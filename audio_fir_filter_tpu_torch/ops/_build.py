@@ -76,6 +76,7 @@ FAMILIES = {
 QUERIES = {
     "segment_filter": ("lowcut_segment_pass1_occupancy",
                        "lowcut_segment_pass2_occupancy",
+                       "lowcut_segment_pass3_occupancy",
                        "lowcut_segment_twiddle_layout"),
     "conv_blocks": ("lowcut_conv_blocks_occupancy",),
 }

@@ -48,6 +48,11 @@ kernels = {"f32": 0, "f64": 0, "i16": 0}
 # Kernels the C entry point issues per scratch chunk: its three passes.
 KERNELS_PER_CHUNK = 3
 
+# 32-bit words of the C entry point's ``peak`` argument, all zeroed by the
+# caller: the output peak (a float), then pass 3's item counter and count
+# of finished CTAs (``Pass3`` in ``csrc/segment_filter.cuh``).
+PEAK_WORDS = 3
+
 # One FFT side is at most 2^13 points (the kernel's shared-memory tile).
 _MAX_LOG_SIDE = 13
 # Scratch for one launch chunk of pairs ([pairs, B] complex): 64 float64
@@ -123,6 +128,17 @@ def pass2_occupancy(mode: str, b: int, device_index: int = 0) -> dict:
     the CTAs the card holds at once (0 without a ring). Asked of the built
     kernel once per (mode, B, card); needs a card."""
     return _occupancy("lowcut_segment_pass2_occupancy", mode, b, device_index)
+
+
+@functools.lru_cache(maxsize=None)
+def pass3_occupancy(mode: str, b: int, device_index: int = 0) -> dict:
+    """Pass 3 of ``mode`` at block size ``b`` on card ``device_index``, in
+    :func:`pass1_occupancy`'s keys: the kernel that runs
+    (``cols_inverse_ring`` with a ring, ``cols_inverse`` without), its
+    ring's depth (0: no ring, one CTA an item), the column tiles a pair
+    and the CTAs the card holds at once (0 without a ring). Asked of the
+    built kernel once per (mode, B, card); needs a card."""
+    return _occupancy("lowcut_segment_pass3_occupancy", mode, b, device_index)
 
 
 def entry_chunks(pairs: int, chunk: int) -> int:
@@ -383,19 +399,26 @@ def _launch(x, plan, left, out_len, i16_io):
         mode = mode_of(plan, i16_io)
         c = x.shape[0]
         y = torch.empty((c, out_len), dtype=x.dtype, device=x.device)
-        peak = torch.zeros((), dtype=torch.float32, device=x.device)
+        words = peak_words(x.device)
         if c == 0 or out_len == 0:
-            return y, peak
+            return y, words[0]
         kernels[mode] += run_entry("segment_filter", f"lowcut_segment_filter_{mode}",
-                                   x, y, peak, plan, left, out_len, prep=prep)
+                                   x, y, words, plan, left, out_len, prep=prep)
     launches[mode] += 1
-    return y, peak
+    return y, words[0]
+
+
+def peak_words(device) -> torch.Tensor:
+    """The zeroed :data:`PEAK_WORDS` float32 words a call's entry point
+    takes as ``peak``; element 0 holds the peak once the call ran."""
+    return torch.zeros(PEAK_WORDS, dtype=torch.float32, device=device)
 
 
 def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
               *extra, prep=spans.NULL) -> int:
     """Launch ``entry`` of ``csrc/<lib>.cu`` on x's device with the segment
-    filter's arguments (its tables, a scratch chunk, the split) and
+    filter's arguments (``peak`` the words of :func:`peak_words`, its
+    tables, a scratch chunk, the split) and
     ``extra`` before the stream: the shipped kernel, or the ablation probe
     (``csrc/probe_segment.cu``, which adds a variant id). ``prep``, the
     caller's open ``segment.prepare`` span, gets the scratch bytes and ends
@@ -404,8 +427,9 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
     ``f64`` or ``i16``, the entry's suffix), the chunks, the kernels, the
     split (``log_n1``, ``log_n2``), the pairs the call filters (``pairs``)
     and a chunk holds (``chunk_pairs``); and what the library reports: the
-    ring depths of pass 1 and pass 2 (``pass1_ring``, ``pass2_ring``, 0
-    without a ring; :func:`pass1_occupancy`, :func:`pass2_occupancy`).
+    ring depths of passes 1, 2 and 3 (``pass1_ring``, ``pass2_ring``,
+    ``pass3_ring``, 0 without a ring; :func:`pass1_occupancy`,
+    :func:`pass2_occupancy`, :func:`pass3_occupancy`).
     Returns the kernels it launched; raises if the launch failed."""
     from . import _build
 
@@ -431,7 +455,8 @@ def run_entry(lib: str, entry: str, x, y, peak, plan, left: int, out_len: int,
             s.set(mode=mode, chunks=chunks, kernels=KERNELS_PER_CHUNK * chunks,
                   log_n1=l1, log_n2=l2, pairs=pairs, chunk_pairs=chunk,
                   pass1_ring=pass1_occupancy(mode, b, card)["ring_depth"],
-                  pass2_ring=pass2_occupancy(mode, b, card)["ring_depth"])
+                  pass2_ring=pass2_occupancy(mode, b, card)["ring_depth"],
+                  pass3_ring=pass3_occupancy(mode, b, card)["ring_depth"])
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), peak.data_ptr(), H.data_ptr(),
                 tw4.data_ptr(), w1.data_ptr(), w2.data_ptr(),

@@ -19,14 +19,16 @@ result line):
    passes that ran on the card, as far as the trace kept them, may not
    exceed it), and median device times
    (CUDA events around each call queued behind a sleep kernel,
-   ``experiments/_probe.event_ms``); pass 1's and pass 2's occupancy at
+   ``experiments/_probe.event_ms``); the three passes' occupancy at
    B = 2^18 in each mode, and in f64 at B = 2^19 (the 1024 x 512 split of
    M = 76,800) (ring depth, CTAs per SM, registers), which must have no
-   local (stack or spill) bytes (pass 1, and pass 2 in f64), pass 2 a
-   ring of 2 at four CTAs of 128 threads an SM in f64 and none in f32 and
-   i16; each mode's four-step twiddle layout at B = 2^18 and
-   2^19 (the full table, or two factor tables where it would exceed
-   4 MiB), failing where the library's compile-time rule and
+   local (stack or spill) bytes (passes 1 and 3, and pass 2 in f64), pass
+   2 a ring of 2 at four CTAs of 128 threads an SM in f64 and none in f32
+   and i16, pass 3 the ring of ``PASS3_F64_RING`` at one CTA of 512
+   threads an SM in f64 and none in f32 and i16; each mode's four-step
+   twiddle layout at B = 2^18 and 2^19 (the full table, or two factor
+   tables where it would exceed 4 MiB), failing where the library's
+   compile-time rule and
    ``kernel_tables``' rule disagree at any B = 2^2 .. 2^26; the long
    filter at 1024 x 512 in f64 (factored twiddle): the segment kernel
    through ``same_filter_peak`` and the block kernel against their plain
@@ -50,10 +52,11 @@ result line):
    auto-normalizes. Launch counters are zeroed before (a) and read after
    (c), the launch spans recorded; every segment-kernel mode must have
    launched, one span a launch, each with its pass-2 ring depth (2 in
-   f64, 0 in f32 and i16), none at a split whose twiddle is
+   f64, 0 in f32 and i16) and its pass-3 ring depth (``PASS3_F64_RING``'s
+   in f64, 0 in f32 and i16), none at a split whose twiddle is
    factored (``twiddle_layout``); then (a) with the long filter (``-f 10
-   -s 5``, B = 2^19): every launch f64, its span at 10x9, where the
-   twiddle is factored, oracle excerpts within 1 LSB@24;
+   -s 5``, B = 2^19): every launch f64, its span at 10x9 with its pass-3
+   ring, where the twiddle is factored, oracle excerpts within 1 LSB@24;
 7. the block path through the CLI, ``--engine fourstep``, on files (a)
    and (b): oracle excerpts, metadata, no 16-bit route; counters zeroed
    before and read after, both block-kernel modes must have launched and
@@ -529,9 +532,11 @@ def phase_kernels() -> dict:
               f"{2 * n / (min(ms, ms2) * 1e-3) / 1e9:.3f} Gsamples/s")
         _pass1_row(sf, mode, 18)
         _pass2_row(sf, mode, 18)
+        _pass3_row(sf, mode, 18)
         if mode == "f64":
             _pass1_row(sf, mode, 19)
             _pass2_row(sf, mode, 19)
+            _pass3_row(sf, mode, 19)
 
         # Float64 oracle on head, a pair seam and tail excerpts.
         xin = x.astype(np.float64) / (32768.0 if i16 else 1.0)
@@ -682,6 +687,49 @@ def _pass2_row(sf, mode: str, log_b: int) -> None:
     check(ok, f"pass 2 {mode} at 2^{log_b}: ring depth {occ['ring_depth']}, "
           f"{occ['ctas_per_sm']} CTAs of {occ['threads']} threads per SM, "
           f"{occ['local_bytes']} local bytes per thread")
+
+
+# Pass 3's ring depth in f64 at B = 2^18 and 2^19 (segment_filter.cuh
+# Pass3: two stages wherever Cols runs one CTA an SM); none in f32 and i16.
+PASS3_F64_RING = {18: 2, 19: 2}
+
+
+def _pass3_row(sf, mode: str, log_b: int) -> None:
+    """Print pass 3's occupancy of ``mode`` at B = 2^``log_b``; fail unless
+    f64 runs the ring ``PASS3_F64_RING`` names (one 512-thread CTA an SM
+    where it runs one) and f32 and i16 cols_inverse with no ring, or on
+    local bytes (a stack frame or a spill) or no CTA an SM."""
+    occ = sf.pass3_occupancy(mode, 1 << log_b)
+    l1, l2 = sf.split(1 << log_b)
+    print(f"pass 3 {mode} at B = 2^{log_b} ({1 << l1} x {1 << l2}): ring depth "
+          f"{occ['ring_depth']}, {occ['ctas_per_sm']} CTAs per SM "
+          f"({occ['resident_ctas']} resident), {occ['threads']} threads, "
+          f"{occ['smem_bytes']} shared bytes, {occ['registers']} registers, "
+          f"{occ['local_bytes']} local bytes")
+    ring = PASS3_F64_RING[log_b] if mode == "f64" else 0
+    ok = occ["ring_depth"] == ring and occ["local_bytes"] == 0 and occ["ctas_per_sm"] >= 1
+    if ring:
+        ok = ok and (occ["ctas_per_sm"], occ["threads"]) == (1, 512)
+    check(ok, f"pass 3 {mode} at 2^{log_b}: ring depth {occ['ring_depth']} (want "
+          f"{ring}), {occ['ctas_per_sm']} CTAs of {occ['threads']} threads per "
+          f"SM, {occ['local_bytes']} local bytes per thread")
+
+
+def _check_pass3_rings(tag: str) -> None:
+    """Fail unless the recorded ``segment.launch`` spans include an f64 one
+    and each carries its pass-3 ring depth: ``PASS3_F64_RING``'s at its B
+    in f64, 0 in f32 and i16."""
+    from audio_fir_filter_tpu_torch.utils import spans
+
+    got = {(s["info"]["mode"], s["info"]["log_n1"] + s["info"]["log_n2"],
+            s["info"].get("pass3_ring")) for s in spans.spans()
+           if s["name"] == "segment.launch"}
+    want = {(m, lb, PASS3_F64_RING[lb] if m == "f64" else 0) for m, lb, _ in got}
+    print(f"{tag}: pass 3 ring depths of the launch spans (mode, log2 B, "
+          f"pass3_ring): {sorted(got, key=str)}")
+    check(got == want and any(m == "f64" for m, _, _ in got),
+          f"{tag}: pass 3 ring depths {sorted(got, key=str)}, want "
+          f"{sorted(want, key=str)}")
 
 
 def phase_edge_shapes() -> None:
@@ -1041,6 +1089,7 @@ def phase_main_path(card: str, files: dict) -> dict:
     check(None not in rings and set(rings) == {0, 2},
           f"pass 2 ring depths of the launch spans: {sorted(set(map(str, rings)))} "
           "(every span carries one: 2 in f64, 0 in f32 and i16)")
+    _check_pass3_rings("main path")
     for k, v in counts.items():
         if k.startswith("segment_filter_"):
             check(v > 0, f"kernel {k} never launched on the main path")
@@ -1110,6 +1159,7 @@ def phase_main_path(card: str, files: dict) -> dict:
           f"{n} f64 launches, all at 10x9 with the factored twiddle; "
           f"excerpts {err_l:.4f} LSB@24")
     check(err_l <= 1.0, f"(a long) excerpt error {err_l} LSB@24 > 1")
+    _check_pass3_rings("(a long)")
     _print_stages("a long", ml, card)
     long_out.unlink()
     return {"counts": counts, "single": single}

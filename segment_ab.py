@@ -18,10 +18,12 @@ checkout as its working directory, imports that checkout's package and
 - the block path's (``conv_blocks``, which shares ``fourstep.cuh``)
   ``ptxas`` summary line and the sha256 of all its SASS;
 - the sha256 of the kernel's output and peak on chip_smoke's phase-3 calls
-  (the seeded 2 x 30 s inputs: f64 and f32 at 96 kHz, i16 at 44.1 kHz);
+  (the seeded 2 x 30 s inputs: f64 and f32 at 96 kHz, i16 at 44.1 kHz)
+  and on 2 x 30 s of the long filter in f64 (``-f 10 -s 5``: B = 2^19,
+  the 1024 x 512 split);
 - the sha256 of file (a) (chip_smoke's 10-minute 96 kHz 24-bit WAV, made
   once here) filtered through the CLI;
-- the median device ms of each phase-3 call (``chip_smoke._time_ms``).
+- the median device ms of each of those calls (``chip_smoke._time_ms``).
 
 It fails unless every turn's hashes and ``ptxas`` lines are equal, and
 prints each turn's times: a difference between the two checkouts reads
@@ -43,6 +45,7 @@ import sys
 import tempfile
 import textwrap
 from concurrent.futures import ThreadPoolExecutor
+from itertools import zip_longest
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -93,8 +96,11 @@ _TURN = textwrap.dedent("""
         for fn in re.split(r"\\n\\s*Function : ", dump)[1:]:
             name, _, body = fn.partition("\\n")
             if keep(name):
+                # Whitespace taken out: cuobjdump pads every instruction
+                # to the widest in the whole library, so a kernel added
+                # anywhere would change every kernel's text.
                 got[anon.sub("anon", name.strip())] = hashlib.sha256(
-                    anon.sub("anon", body).encode()).hexdigest()
+                    " ".join(anon.sub("anon", body).split()).encode()).hexdigest()
         return got
 
     # The block path (conv_blocks.cu, which shares fourstep.cuh): its
@@ -119,6 +125,16 @@ _TURN = textwrap.dedent("""
             y.cpu().numpy().tobytes() + pk.cpu().numpy().tobytes()).hexdigest()
         out["ms"][mode] = cs._time_ms(
             lambda: sf.segment_filter(xd, plan, plan.mo2, n, i16_io=i16))
+    # The long filter in f64 (M = 76,800 at 96 kHz, B = 2^19, 1024 x 512).
+    plan = LowCut(freq=10.0, slope=5.0).plan(96000.0, precision="high",
+                                             device="cuda")
+    xd = torch.from_numpy(cs._signal(96000.0, 30.0, rng)).cuda()
+    n = xd.shape[1]
+    y, pk = sf.segment_filter(xd, plan, plan.mo2, n)
+    out["sha"]["f64 2^19"] = hashlib.sha256(
+        y.cpu().numpy().tobytes() + pk.cpu().numpy().tobytes()).hexdigest()
+    out["ms"]["f64 2^19"] = cs._time_ms(
+        lambda: sf.segment_filter(xd, plan, plan.mo2, n))
     assert cli([sys.argv[1], sys.argv[2], "-O"]) == 0
     with open(sys.argv[2], "rb") as f:
         out["sha"]["file (a)"] = hashlib.sha256(f.read()).hexdigest()
@@ -191,10 +207,16 @@ def run(other: Path, new_code: bool = False) -> list[str]:
         (po, so), (pt, st) = (p18[0], s18[0] or {}), (p18[1], s18[1] or {})
         both = set(po) & set(pt)
         same = sorted(k for k in both if po[k] == pt[k] and so.get(k) == st.get(k))
+        # Each kernel that differs: in what, and its first ptxas lines that
+        # differ (the other's, this one's).
+        differ = {k: ("ptxas " + str(next((a, b) for a, b in zip_longest(
+                          po[k], pt[k], fillvalue="") if a != b)) if po[k] != pt[k] else "")
+                  + (" SASS" if so.get(k) != st.get(k) else "")
+                  for k in sorted(both - set(same))}
         lines.append(
             f"the kernels at B = 2^18 (512 x 512), this checkout against the "
             f"other ({sass_said}): equal in ptxas and SASS {same}; differ "
-            f"{sorted(both - set(same))}; only in the other "
+            f"{differ}; only in the other "
             f"{sorted(set(po) - set(pt))}; only in this {sorted(set(pt) - set(po))}")
     blocks = [t["blocks"] for t in turns]
     if any(a["blocks"] != b["blocks"] for a, b in across):

@@ -157,6 +157,8 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
         asked.append(a), {"resident_ctas": 12, "ring_depth": 2})[1])
     monkeypatch.setattr(sf, "pass2_occupancy", lambda *a: (
         asked.append(("pass 2", *a)), {"resident_ctas": 0, "ring_depth": 0})[1])
+    monkeypatch.setattr(sf, "pass3_occupancy", lambda *a: (
+        asked.append(("pass 3", *a)), {"resident_ctas": 0, "ring_depth": 0})[1])
     plan = _small_plan("fast")
     x = torch.zeros((2, 50_000))
     before = (dict(sf.launches), dict(sf.kernels))
@@ -186,10 +188,12 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
     # cuts its grid to the resident CTAs, which the library reckons; the
     # span carries the split and the ring depths the library reports.
     assert Pass1("f32", 5, 5).tiles == 4
-    assert asked == [("f32", plan.block_size, 0), ("pass 2", "f32", plan.block_size, 0)]
+    assert asked == [("f32", plan.block_size, 0), ("pass 2", "f32", plan.block_size, 0),
+                     ("pass 3", "f32", plan.block_size, 0)]
     assert launch["info"] == {"mode": "f32", "chunks": chunks, "kernels": 3 * chunks,
                               "log_n1": 5, "log_n2": 5, "pairs": pairs,
-                              "chunk_pairs": 4, "pass1_ring": 2, "pass2_ring": 0}
+                              "chunk_pairs": 4, "pass1_ring": 2, "pass2_ring": 0,
+                              "pass3_ring": 0}
 
 
 @pytest.mark.parametrize("precision,i16", [("high", False), ("fast", False),
@@ -197,20 +201,19 @@ def test_the_segment_wrapper_counts_and_spans_its_launch(monkeypatch):
 def test_the_launch_span_holds_only_what_the_host_decided_and_the_ring(
         monkeypatch, precision, i16):
     # In every mode: the kernel mode, the host's chunking and split, and
-    # the ring depths of passes 1 and 2 as the library reports them;
+    # the ring depths of passes 1, 2 and 3 as the library reports them;
     # nothing of the compiled launch geometry.
     _fake_card(monkeypatch, _FakeEntry())
-    monkeypatch.setattr(sf, "pass1_occupancy", lambda *a: {
-        "resident_ctas": 132, "ring_depth": 1})
-    monkeypatch.setattr(sf, "pass2_occupancy", lambda *a: {
-        "resident_ctas": 132, "ring_depth": 1})
+    for name in ("pass1_occupancy", "pass2_occupancy", "pass3_occupancy"):
+        monkeypatch.setattr(sf, name, lambda *a: {"resident_ctas": 132, "ring_depth": 1})
     plan = _small_plan(precision)
     x = torch.zeros((2, 5000), dtype=torch.int16 if i16 else torch.float32)
     with spans.recording():
         sf._launch(x, plan, plan.mo2, 5000, i16)
     (launch,) = [s for s in spans.spans() if s["name"] == "segment.launch"]
     assert set(launch["info"]) == {"mode", "chunks", "kernels", "pairs", "chunk_pairs",
-                                   "log_n1", "log_n2", "pass1_ring", "pass2_ring"}
+                                   "log_n1", "log_n2", "pass1_ring", "pass2_ring",
+                                   "pass3_ring"}
     assert launch["info"]["mode"] == {("high", False): "f64", ("fast", False): "f32",
                                       ("fast", True): "i16"}[precision, i16]
 
@@ -222,16 +225,14 @@ def test_the_launch_span_holds_only_what_the_host_decided_and_the_ring(
 def test_the_launch_span_names_the_split_it_ran(monkeypatch, freq, slope, split,
                                                 pairs, chunk, ring):
     # A CPU-built plan of a 96 kHz deployment, launched on a stand-in card:
-    # the span gives the split, the pairs and the chunk and the ring depth
-    # pass1_occupancy reports; the entry point gets the twiddle table of
+    # the span gives the split, the pairs and the chunk and the ring depths
+    # the occupancy queries report; the entry point gets the twiddle table of
     # twiddle_layout (the 4 MiB table at 2^18, the factor tables of 128 + 8
     # rows of 512 complex128 at 2^19).
     entry = _FakeEntry()
     _fake_card(monkeypatch, entry)
-    monkeypatch.setattr(sf, "pass1_occupancy", lambda *a: {
-        "resident_ctas": 132, "ring_depth": ring})
-    monkeypatch.setattr(sf, "pass2_occupancy", lambda *a: {
-        "resident_ctas": 132, "ring_depth": ring})
+    for name in ("pass1_occupancy", "pass2_occupancy", "pass3_occupancy"):
+        monkeypatch.setattr(sf, name, lambda *a: {"resident_ctas": 132, "ring_depth": ring})
     plan = LowCut(freq=freq, slope=slope).plan(96000.0, precision="high",
                                                device="cpu")
     assert sf.split(plan.block_size) == split
@@ -243,7 +244,7 @@ def test_the_launch_span_names_the_split_it_ran(monkeypatch, freq, slope, split,
     info = launch["info"]
     assert (info["log_n1"], info["log_n2"]) == split
     assert (info["pairs"], info["chunk_pairs"], info["pass1_ring"],
-            info["pass2_ring"]) == (pairs, chunk, ring, ring)
+            info["pass2_ring"], info["pass3_ring"]) == (pairs, chunk, ring, ring, ring)
     assert info["pairs"] == sf.call_pairs(2, x.shape[1], plan.hop)
     # Pass 1's items (pair, column tile) in the tests' model: 64 or 128
     # tiles a pair.
